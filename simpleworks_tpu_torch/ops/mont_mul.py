@@ -1,0 +1,215 @@
+"""Batched BLS12-377 Fr/Fq arithmetic on limb-major tensors: the four
+kernels of the port and their plain PyTorch versions.
+
+Port of ``simpleworks_tpu/ops/mont_mul_pallas.py``.  A field vector is a
+limb-major ``[L, B]`` ``torch.int32`` tensor of 16-bit limbs in Montgomery
+form (L = 16 for Fr, R = 2^256; L = 24 for Fq, R = 2^384) — value for value
+the reference's ``uint32`` arrays.
+
+Each public op takes two such tensors of one shape (broadcast a ``[L, 1]``
+column with ``.expand``; sliced views are fine, the kernels take strides):
+
+* a tensor on the CPU goes to the plain version (int64 limb arithmetic —
+  torch has no uint32 add/shift/compare on the CPU);
+* a tensor on CUDA goes to the CUDA kernel of ``csrc/field_kernels.cu``, or
+  the wrapper raises.  There is no fallback between the two.
+
+``LAUNCHES`` counts kernel launches per op, so a run can show that its path
+went through the kernels; only a CUDA launch adds to it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..fields.device import FQ, FR, LIMB_BITS, LIMB_MASK, LimbField, split_words
+
+__all__ = [
+    "FR", "FQ", "LimbField", "LAUNCHES", "reset_launches", "mont_mul", "mod_add", "mod_sub",
+    "mont_pow", "mont_mul_plain", "mod_add_plain", "mod_sub_plain", "mont_pow_plain",
+]
+
+#: kernel launches per op since the last :func:`reset_launches`
+LAUNCHES = {"mont_mul": 0, "mod_add": 0, "mod_sub": 0, "mont_pow": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ------------------------------------------------------------ plain versions --
+
+
+def _normalize(v: torch.Tensor):
+    """Carry-propagate int64 limb rows [L, B] (any sign, any size) into
+    16-bit limbs -> (limbs mod 2^(16L), carry out of the top limb).
+
+    Parallel passes (every limb sheds its carry at once) until no carry is
+    left: two or three for random data, at most about L when a carry
+    ripples through a run of 0xFFFF limbs."""
+    top = torch.zeros_like(v[0])
+    while True:
+        c = v >> LIMB_BITS  # arithmetic shift: a borrow is a carry of −1
+        if not bool(c.any()):
+            return v, top
+        v = v & LIMB_MASK
+        v[1:] += c[:-1]
+        top = top + c[-1]
+
+
+def _geq(x: torch.Tensor, field: LimbField) -> torch.Tensor:
+    """x ≥ p for 16-bit limb rows [L, B]: the sign of the most significant
+    limb that differs, as the sign of Σ sign(x_i − p_i)·3^i."""
+    pow3 = torch.tensor([3**i for i in range(field.n_limbs)], dtype=torch.int64, device=x.device)
+    s = torch.sign(x - field.col(field.p_limbs, x.device, torch.int64))
+    return (s * pow3[:, None]).sum(dim=0) >= 0
+
+
+def _reduce_once(v: torch.Tensor, carry: torch.Tensor, field: LimbField) -> torch.Tensor:
+    """V = carry·2^(16L) + v < 2p -> V mod p (subtract p once when V ≥ p)."""
+    diff, _ = _normalize(v - field.col(field.p_limbs, v.device, torch.int64))
+    return torch.where((carry > 0) | _geq(v, field), diff, v).to(torch.int32)
+
+
+def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.Tensor:
+    """a·b·R⁻¹ mod p: schoolbook product, 16-bit REDC, one conditional
+    subtract — the arithmetic of the Pallas ``_mul_body``."""
+    L = field.n_limbs
+    a64, b64 = a.to(torch.int64), b.to(torch.int64)
+    t = torch.zeros((2 * L + 1, a.shape[1]), dtype=torch.int64, device=a.device)
+    for i in range(L):  # column sums stay < 2L·2^32: no carries needed yet
+        t[i : i + L] += a64[i] * b64
+    p = field.col(field.p_limbs, a.device, torch.int64)
+    for i in range(L):
+        m = ((t[i] & LIMB_MASK) * field.n0_16) & LIMB_MASK
+        t[i : i + L] += m * p
+        t[i + 1] += t[i] >> LIMB_BITS  # row i is now ≡ 0 mod 2^16
+    res, carry = _normalize(t[L:])  # rows L..2L: V < 2p, so row 2L is 0 or 1
+    return _reduce_once(res[:L], res[L] + carry, field)
+
+
+def mod_add_plain(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.Tensor:
+    """(a + b) mod p: carry-propagate, then subtract p when the sum is ≥ p."""
+    res, carry = _normalize(a.to(torch.int64) + b.to(torch.int64))
+    return _reduce_once(res, carry, field)
+
+
+def mod_sub_plain(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.Tensor:
+    """(a − b) mod p: borrow-propagate, then add p back when it wrapped."""
+    diff, borrow = _normalize(a.to(torch.int64) - b.to(torch.int64))
+    plus, _ = _normalize(diff + field.col(field.p_limbs, a.device, torch.int64))
+    return torch.where(borrow < 0, plus, diff).to(torch.int32)
+
+
+def mont_pow_plain(x: torch.Tensor, exponent: int, field: LimbField) -> torch.Tensor:
+    """x^e elementwise, MSB-first square-and-multiply (0 maps to 0 for e > 0)."""
+    acc = field.one(x.shape[1], x.device)
+    for bit in bin(exponent)[2:]:
+        acc = mont_mul_plain(acc, acc, field)
+        if bit == "1":
+            acc = mont_mul_plain(acc, x, field)
+    return acc.contiguous()
+
+
+# ------------------------------------------------------------------ wrappers --
+
+
+def _check(field: LimbField, *xs: torch.Tensor) -> None:
+    shape = xs[0].shape
+    for x in xs:
+        if x.dtype != torch.int32:
+            raise TypeError(f"field vectors are torch.int32 limb tensors, got {x.dtype}")
+        if x.dim() != 2 or x.shape[0] != field.n_limbs:
+            raise ValueError(
+                f"expected a [{field.n_limbs}, B] {field.params.name} limb tensor, got {tuple(x.shape)}"
+            )
+        if x.shape != shape:
+            raise ValueError(f"shape mismatch: {tuple(x.shape)} vs {tuple(shape)}")
+        if x.device != xs[0].device:
+            raise ValueError(f"device mismatch: {x.device} vs {xs[0].device}")
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return True
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
+
+
+def _binary(name: str, symbol: str, a: torch.Tensor, b: torch.Tensor, field: LimbField):
+    from ._build import library
+
+    fn = getattr(library(), symbol)
+    L, B = a.shape
+    out = torch.empty((L, B), dtype=torch.int32, device=a.device)
+    if B == 0:
+        return out
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(field.n_words, a.data_ptr(), a.stride(0), a.stride(1),
+                b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(), B,
+                field.p_words_ptr, field.n0_32, field.one_words_ptr, stream)
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.Tensor:
+    """Montgomery product a·b·R⁻¹ mod p of two [L, B] limb tensors."""
+    _check(field, a, b)
+    if not _on_cuda(a):
+        return mont_mul_plain(a, b, field)
+    return _binary("mont_mul", "swt_mont_mul", a, b, field)
+
+
+def mod_add(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.Tensor:
+    """(a + b) mod p of two [L, B] limb tensors."""
+    _check(field, a, b)
+    if not _on_cuda(a):
+        return mod_add_plain(a, b, field)
+    return _binary("mod_add", "swt_mod_add", a, b, field)
+
+
+def mod_sub(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.Tensor:
+    """(a − b) mod p of two [L, B] limb tensors."""
+    _check(field, a, b)
+    if not _on_cuda(a):
+        return mod_sub_plain(a, b, field)
+    return _binary("mod_sub", "swt_mod_sub", a, b, field)
+
+
+def mont_pow(x: torch.Tensor, exponent: int, field: LimbField) -> torch.Tensor:
+    """x^exponent elementwise on an [L, B] Montgomery limb tensor (a fixed
+    exponent of at most 384 bits; the Fermat inverse is e = p − 2)."""
+    _check(field, x)
+    if exponent < 0 or exponent.bit_length() > 384:
+        raise ValueError("exponent must be a non-negative integer of at most 384 bits")
+    if not _on_cuda(x):
+        return mont_pow_plain(x, exponent, field)
+    from ._build import library
+
+    L, B = x.shape
+    out = torch.empty((L, B), dtype=torch.int32, device=x.device)
+    if B == 0:
+        return out
+    n_e = max(1, (exponent.bit_length() + 31) // 32)
+    e_words = (ctypes.c_uint32 * n_e)(*split_words(exponent, n_e, 32))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = library().swt_mont_pow(
+            field.n_words, x.data_ptr(), x.stride(0), x.stride(1), out.data_ptr(), B,
+            field.p_words_ptr, field.n0_32, field.one_words_ptr,
+            ctypes.addressof(e_words), n_e, exponent.bit_length(), stream,
+        )
+    _raise_on(rc, "mont_pow")
+    LAUNCHES["mont_pow"] += 1
+    return out

@@ -1,0 +1,80 @@
+"""The port's CUDA field kernels against their plain PyTorch versions, on the
+card (exact equality: field arithmetic is exact).
+
+Skips without a CUDA device.  On a machine with one:
+    python -m pytest -m cuda tests/test_torch_cuda_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from simpleworks_tpu_torch.fields.device import FQ, FR
+from simpleworks_tpu_torch.ops import mont_mul as mm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def rand_field(field, n, seed, device):
+    """[L, n] canonical limbs with 0, 1 and p−1 in the first lanes."""
+    rng = np.random.default_rng(seed)
+    limbs = rng.integers(0, 1 << 16, size=(field.n_limbs, n), dtype=np.int64)
+    limbs[-1] %= field.p_limbs[-1]  # top limb below p's: value < p
+    edge = [[0] * field.n_limbs, [1] + [0] * (field.n_limbs - 1), list(field.p_limbs)]
+    edge[2][0] -= 1
+    for j, col in enumerate(edge[: min(3, n)]):
+        limbs[:, j] = col
+    return torch.from_numpy(limbs.astype(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("field", [FR, FQ], ids=["fr", "fq"])
+@pytest.mark.parametrize("n", [1, 257, 5000])
+def test_binary_kernels_match_plain(cuda, field, n):
+    a = rand_field(field, n, 1, cuda)
+    b = rand_field(field, n, 2, cuda).flip(1).contiguous()
+    for op, plain in ((mm.mont_mul, mm.mont_mul_plain), (mm.mod_add, mm.mod_add_plain),
+                      (mm.mod_sub, mm.mod_sub_plain)):
+        before = dict(mm.LAUNCHES)
+        got = op(a, b, field)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(a, b, field)), op.__name__
+        assert mm.LAUNCHES[op.__name__] == before[op.__name__] + 1
+
+
+@pytest.mark.parametrize("field", [FR, FQ], ids=["fr", "fq"])
+def test_strided_views_and_broadcast_columns(cuda, field):
+    """Slices of a wider tensor (row stride > B) and expanded [L, 1] columns
+    (column stride 0) read correctly without a copy."""
+    wide = rand_field(field, 1000, 3, cuda)
+    lo, hi = wide[:, :500], wide[:, 500:]
+    col = rand_field(field, 1, 4, cuda)[:, :1].expand(field.n_limbs, 500)
+    for op, plain in ((mm.mont_mul, mm.mont_mul_plain), (mm.mod_add, mm.mod_add_plain),
+                      (mm.mod_sub, mm.mod_sub_plain)):
+        assert torch.equal(op(lo, hi, field), plain(lo.contiguous(), hi.contiguous(), field))
+        assert torch.equal(op(lo, col, field), plain(lo.contiguous(), col.contiguous(), field))
+
+
+@pytest.mark.parametrize("field", [FR, FQ], ids=["fr", "fq"])
+def test_mont_pow_matches_plain(cuda, field):
+    x = rand_field(field, 300, 5, cuda)
+    for e in (0, 1, 2, 0xDEADBEEF12345, field.p - 2):
+        got = mm.mont_pow(x, e, field)
+        torch.cuda.synchronize()
+        assert torch.equal(got, mm.mont_pow_plain(x, e, field)), e
+
+
+def test_wrapper_rejects_bad_inputs(cuda):
+    a = rand_field(FR, 8, 6, cuda)
+    with pytest.raises(TypeError):
+        mm.mont_mul(a.to(torch.int64), a.to(torch.int64), FR)
+    with pytest.raises(ValueError):
+        mm.mont_mul(a, a, FQ)
+    with pytest.raises(ValueError):
+        mm.mod_add(a, a.cpu(), FR)

@@ -1,0 +1,120 @@
+"""The port's field layer (simpleworks_tpu_torch.fields, ops.mont_mul) held
+against the JAX package on the same numpy-seeded inputs, tolerance 0: field
+arithmetic is exact.  The reference's Pallas kernels run in interpret mode
+at a 128-lane tile, as tests/test_pallas.py runs them."""
+
+import numpy as np
+import pytest
+import torch
+
+from simpleworks_tpu.fields import bls12_377 as ref_fields
+from simpleworks_tpu.fields import device as ref_device
+from simpleworks_tpu.utils import rng as ref_rng
+from simpleworks_tpu_torch.fields import bls12_377 as fields
+from simpleworks_tpu_torch.fields import device
+from simpleworks_tpu_torch.fields.device import FQ, FR
+from simpleworks_tpu_torch.ops import mont_mul as mm
+from simpleworks_tpu_torch.utils import rng as port_rng
+
+torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
+
+TILE = 128  # smallest legal Pallas lane tile: keeps interpret mode quick
+
+
+def canonical_limbs(field, n, seed):
+    """[L, n] uint32 limbs of values < p, with 0, 1 and p−1 in the first lanes."""
+    rng = np.random.default_rng(seed)
+    limbs = rng.integers(0, 1 << 16, size=(field.n_limbs, n), dtype=np.int64)
+    limbs[-1] %= field.p_limbs[-1]
+    limbs[:, 0] = 0
+    limbs[:, 1] = [1] + [0] * (field.n_limbs - 1)
+    limbs[:, 2] = device.ints_to_limbs([field.p - 1], field.n_limbs)[:, 0]
+    return limbs.astype(np.uint32)
+
+
+def test_host_fields_and_rng_match_reference():
+    r1, r2 = ref_rng.test_rng(), port_rng.test_rng()
+    for ref_cls, cls in ((ref_fields.Fr, fields.Fr), (ref_fields.Fq, fields.Fq)):
+        for _ in range(5):
+            a, b = ref_cls.rand(r1), cls.rand(r2)
+            assert a.value == b.value
+            assert a.serialize() == b.serialize()
+            assert (a * a).sqrt().value == (b * b).sqrt().value
+            assert a.inverse().value == b.inverse().value
+    assert ref_fields.Fr.rand_vec(r1, 7) == fields.Fr.rand_vec(r2, 7)
+    assert r1.next_u64() == r2.next_u64()
+
+
+@pytest.mark.parametrize("field", [FR, FQ], ids=["fr", "fq"])
+def test_limb_packing_matches_reference(field):
+    params = field.params
+    rng = np.random.default_rng(1)
+    vals = [int.from_bytes(rng.bytes(48), "little") % field.p for _ in range(9)] + [0, 1, field.p - 1]
+    limbs = device.ints_to_limbs(vals, field.n_limbs)
+    assert np.array_equal(limbs.T.astype(np.uint32),
+                          np.stack([ref_device.int_to_limbs(v, field.n_limbs) for v in vals]))
+    assert device.limbs_to_ints(limbs) == vals
+    ref_mont = np.asarray(ref_device.DeviceField(params).to_mont(vals)).T  # [L, N] u32
+    port_mont = device.to_mont(vals, field)
+    assert torch.equal(port_mont, device.from_reference_limbs(ref_mont))
+    assert np.array_equal(device.to_reference_limbs(port_mont), ref_mont)
+    assert device.from_mont(port_mont, field) == vals
+    with pytest.raises(ValueError):
+        device.from_reference_limbs(np.full((field.n_limbs, 2), 1 << 16, np.uint32))
+
+
+@pytest.mark.parametrize("field", [FR, FQ], ids=["fr", "fq"])
+def test_plain_kernels_match_pallas_interpret(field):
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from simpleworks_tpu.ops.mont_mul_pallas import make_mod_addsub, make_mont_mul
+
+    a_np = canonical_limbs(field, TILE, 2)
+    b_np = canonical_limbs(field, TILE, 3)[:, ::-1].copy()  # edge values meet each other
+    with pltpu.force_tpu_interpret_mode():
+        ref_mul = np.asarray(make_mont_mul(field.params, tile=TILE)(jnp.asarray(a_np), jnp.asarray(b_np)))
+        add, sub = make_mod_addsub(field.params, tile=TILE)
+        ref_add = np.asarray(add(jnp.asarray(a_np), jnp.asarray(b_np)))
+        ref_sub = np.asarray(sub(jnp.asarray(a_np), jnp.asarray(b_np)))
+    a, b = device.from_reference_limbs(a_np), device.from_reference_limbs(b_np)
+    assert torch.equal(mm.mont_mul(a, b, field), device.from_reference_limbs(ref_mul))
+    assert torch.equal(mm.mod_add(a, b, field), device.from_reference_limbs(ref_add))
+    assert torch.equal(mm.mod_sub(a, b, field), device.from_reference_limbs(ref_sub))
+    # strided views and broadcast columns give what their copies give
+    col = a[:, 5:6].expand_as(b)
+    assert torch.equal(mm.mont_mul(col, b[:, ::1], field), mm.mont_mul(col.contiguous(), b, field))
+
+
+@pytest.mark.parametrize("field", [FR, FQ], ids=["fr", "fq"])
+def test_mont_pow_matches_pallas_interpret_and_host(field):
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from simpleworks_tpu.ops.mont_mul_pallas import make_mont_pow
+
+    x_np = canonical_limbs(field, TILE, 4)
+    e = 0b1011001  # short exponent: keeps the interpret-mode chain cheap
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(make_mont_pow(field.params, e, tile=TILE)(jnp.asarray(x_np)))
+    x = device.from_reference_limbs(x_np)
+    assert torch.equal(mm.mont_pow(x, e, field), device.from_reference_limbs(ref))
+    # the Fermat exponent of the path (p−2 for Fr, q−2 for Fq) against host pow
+    small = x[:, :6]
+    got = device.from_mont(mm.mont_pow(small, field.p - 2, field), field)
+    vals = device.from_mont(small, field)
+    assert got == [pow(v, field.p - 2, field.p) for v in vals]
+    assert got[0] == 0  # 0 maps to 0
+
+
+def test_wrappers_check_inputs():
+    a = device.to_mont([1, 2, 3], FR)
+    with pytest.raises(TypeError):
+        mm.mod_add(a.to(torch.int64), a.to(torch.int64), FR)
+    with pytest.raises(ValueError):
+        mm.mod_add(a, a, FQ)
+    with pytest.raises(ValueError):
+        mm.mod_add(a, a[:, :2], FR)
+    before = dict(mm.LAUNCHES)
+    mm.mont_mul(a, a, FR)
+    assert mm.LAUNCHES == before  # the plain CPU path launches no kernel

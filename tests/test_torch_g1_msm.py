@@ -1,0 +1,227 @@
+"""The port's G1 layer held against the JAX package on the same inputs: host
+curve serde and pairing, limb-major point arithmetic
+(simpleworks_tpu_torch.ops.g1_limb), the device Pippenger MSM
+(ops.msm_pippenger) and the fixed-base SRS powers (ops.srs_device).  Limb
+tensors are compared value for value and group elements exactly.
+
+The reference's limb-major point ops run jitted on the CPU (their XLA
+Montgomery multiply), which is the JAX package's own CPU route."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from simpleworks_tpu import native
+from simpleworks_tpu.curves import bls12_377 as ref_curves
+from simpleworks_tpu.curves.pairing import multi_pairing as ref_multi_pairing
+from simpleworks_tpu.kzg.msm import msm as ref_msm
+from simpleworks_tpu.ops import g1_limb as ref_g1
+from simpleworks_tpu_torch.curves.bls12_377 import G1Point, G2Point
+from simpleworks_tpu_torch.curves.pairing import multi_pairing
+from simpleworks_tpu_torch.fields.bls12_377 import FQ_MODULUS as Q
+from simpleworks_tpu_torch.fields.bls12_377 import FR_MODULUS as P
+from simpleworks_tpu_torch.fields.device import (
+    FQ, FR, from_mont, from_reference_limbs, ints_to_limbs, to_mont, to_reference_limbs,
+)
+from simpleworks_tpu_torch.kzg.msm import msm
+from simpleworks_tpu_torch.ops import g1_limb, msm_pippenger, srs_device
+
+torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
+
+rng = np.random.default_rng(33)
+G = G1Point.generator()
+
+
+def rand_scalars(n):
+    return [int.from_bytes(rng.bytes(32), "little") % P for _ in range(n)]
+
+
+def ref_point(pt):
+    return ref_curves.G1Point(pt.X, pt.Y, pt.Z)
+
+
+def ref_planes(planes):
+    return tuple(jnp.asarray(to_reference_limbs(a)) for a in planes)
+
+
+def same_planes(port, ref):
+    return len(port) == len(ref) and all(
+        torch.equal(a, from_reference_limbs(np.asarray(b))) for a, b in zip(port, ref)
+    )
+
+
+def edge_cases():
+    """(p, q) rows: generic, doubling, P + (−P), identities on either side."""
+    p3, p5 = G.scalar_mul(3), G.scalar_mul(5)
+    ident = G1Point.identity()
+    return [(p3, p5), (p3, p3), (p3, p3.neg()), (ident, p5), (p3, ident), (ident, ident)]
+
+
+def test_serde_and_pairing_match_reference():
+    pts = [G.scalar_mul(int(k)) for k in rng.integers(1, 1 << 62, 3)] + [G1Point.identity()]
+    for pt in pts:
+        data = pt.serialize_compressed()
+        assert data == ref_point(pt).serialize_compressed()
+        assert G1Point.deserialize_compressed(data) == pt
+    h = G2Point.generator().scalar_mul(12345)
+    ref_h = ref_curves.G2Point.generator().scalar_mul(12345)
+    assert h.serialize_compressed() == ref_h.serialize_compressed()
+    assert G2Point.deserialize_compressed(h.serialize_compressed()) == h
+    got = multi_pairing([(pts[0], h), (pts[1].neg(), G2Point.generator())])
+    expected = ref_multi_pairing(
+        [(ref_point(pts[0]), ref_h), (ref_point(pts[1]).neg(), ref_curves.G2Point.generator())]
+    )
+    assert repr(got) == repr(expected)
+    # bilinearity: e(7a, h) · e(−a, 7h) = 1
+    assert multi_pairing([(pts[0].scalar_mul(7), h), (pts[0].neg(), h.scalar_mul(7))]) == \
+        type(got).one()
+
+
+def test_packing_matches_reference():
+    pts = [G.scalar_mul(k) for k in (2, 3, 1000)] + [G1Point.identity()]
+    port = g1_limb.points_to_limb_major(pts)
+    assert same_planes(port, ref_g1.points_to_limb_major([ref_point(p) for p in pts]))
+    assert g1_limb.points_from_limb_major(port) == pts
+    affine = g1_limb.points_to_limb_major_affine(pts)
+    assert same_planes(affine, ref_g1.points_to_limb_major_affine([ref_point(p) for p in pts]))
+    assert g1_limb.points_from_affine_planes(torch.stack(affine[:2])) == pts
+
+
+def test_add_and_double_match_reference():
+    cases = edge_cases()
+    p = g1_limb.points_to_limb_major([a for a, _ in cases])
+    q = g1_limb.points_to_limb_major([b for _, b in cases])
+    got = g1_limb.add(p, q)
+    assert same_planes(got, jax.jit(ref_g1.add)(ref_planes(p), ref_planes(q)))
+    assert g1_limb.points_from_limb_major(got) == [a.add(b) for a, b in cases]
+    dbl = g1_limb.double(p)
+    assert same_planes(dbl, jax.jit(ref_g1.double)(ref_planes(p)))
+    assert g1_limb.points_from_limb_major(dbl) == [a.double() for a, _ in cases]
+
+
+def test_madd_matches_reference():
+    cases = edge_cases()
+    p = g1_limb.points_to_limb_major([a for a, _ in cases])
+    q2 = g1_limb.points_to_limb_major_affine([b for _, b in cases])[:2]
+    got = g1_limb.madd(p, q2)
+    assert same_planes(got, jax.jit(ref_g1.madd)(ref_planes(p), ref_planes(q2)))
+    assert g1_limb.points_from_limb_major(got) == [a.add(b) for a, b in cases]
+
+
+def test_affine_madd_matches_reference():
+    cases = [(a, b, True) for a, b in edge_cases()]
+    cases += [(G.scalar_mul(3), G.scalar_mul(5), False), (G1Point.identity(), G, False)]
+    acc = g1_limb.points_to_limb_major_affine([a for a, _, _ in cases])[:2]
+    q2 = g1_limb.points_to_limb_major_affine([b for _, b, _ in cases])[:2]
+    valid = [v for _, _, v in cases]
+    got = g1_limb.affine_madd(acc, q2, torch.tensor(valid))
+    expected = jax.jit(ref_g1.affine_madd)(ref_planes(acc), ref_planes(q2), jnp.asarray(valid))
+    assert same_planes(got, expected)
+    jac = g1_limb.affine_to_jacobian(got)
+    assert same_planes(jac, jax.jit(ref_g1.affine_to_jacobian)(ref_planes(got)))
+    assert g1_limb.points_from_limb_major(jac) == [a.add(b) if v else a for a, b, v in cases]
+
+
+def test_batch_inverse_matches_reference():
+    vals = [int.from_bytes(rng.bytes(48), "little") % Q or 1 for _ in range(13)]
+    x = to_mont(vals, FQ)
+    got = g1_limb.FqLimb(base=2).batch_inverse(x)  # three levels, odd widths padded
+    expected = ref_g1.FqLimb(tile=128).batch_inverse(jnp.asarray(to_reference_limbs(x)))
+    assert torch.equal(got, from_reference_limbs(np.asarray(expected)))
+    assert from_mont(got, FQ) == [pow(v, Q - 2, Q) for v in vals]
+    # the halves of a strided view are strided views: same inverses
+    wide = to_mont(vals[:12] * 2, FQ)
+    assert torch.equal(g1_limb.FqLimb(base=2).batch_inverse(wide[:, 12:]), got[:, :12])
+
+
+@pytest.fixture(scope="module")
+def table():
+    """1100 affine points as the reference stores an SRS, and as the port's
+    [2, 24, N] planes."""
+    scalars = [(i * 6364136223846793005 + 1442695040888963407) % P for i in range(1100)]
+    pts_native = native.g1_ensure_normalized(
+        native.g1_fixed_base_raw(ref_curves.G1Point.generator(), scalars)
+    )
+    return pts_native, g1_limb.native_points_to_limb_major(pts_native)
+
+
+@pytest.mark.parametrize("n", [33, 64, 1024])
+def test_msm_matches_reference_host_msm(table, n):
+    pts_native, xy = table
+    offset = 7
+    scalars = rand_scalars(n)
+    scalars[0], scalars[1] = 0, 1
+    got = msm_pippenger.msm_device_mont(xy, to_mont(scalars, FR), offset=offset)
+    expected = ref_msm(native._points_from_native(pts_native[offset : offset + n]), scalars)
+    assert got.serialize_compressed() == expected.serialize_compressed()
+
+
+@pytest.mark.parametrize("accum", ["affine", "madd"])
+def test_msm_accumulate_modes_with_repeated_points(accum):
+    """Equal points in one bucket (doubling) and P, −P sharing every digit
+    (cancellation), through both accumulate steps and the standard-form
+    entry."""
+    pts = [G.scalar_mul(7 * i + 2) for i in range(12)]
+    pts[3] = pts[2]
+    pts[5] = pts[4].neg()
+    scalars = rand_scalars(12)
+    scalars[4] = scalars[5] = 9
+    xy = torch.stack(g1_limb.points_to_limb_major_affine(pts)[:2])
+    std = np.array([[(s >> (64 * k)) & (2**64 - 1) for k in range(4)] for s in scalars], "<u8")
+    got = msm_pippenger.msm_device(xy, std, c=4, accum=accum)
+    assert got == msm(pts, scalars)
+    assert got.serialize_compressed() == ref_msm(
+        [ref_point(p) for p in pts], scalars).serialize_compressed()
+
+
+@pytest.mark.slow  # the reference's CPU accumulate program compiles for ~45 s
+def test_msm_matches_reference_msm_device_mont(table):
+    from simpleworks_tpu.fields.frvec import FrVec
+    from simpleworks_tpu.ops import msm_pippenger as ref_msm_pippenger
+
+    pts_native, xy = table
+    scalars = rand_scalars(40)
+    scalars[0], scalars[3] = 0, 1
+    got = msm_pippenger.msm_device_mont(xy, to_mont(scalars, FR), c=8)
+    ref_xy = ref_g1.native_points_to_limb_major(pts_native)
+    expected = ref_msm_pippenger.msm_device_mont(ref_xy, FrVec.from_ints(scalars), c=8)
+    assert got.serialize_compressed() == expected.serialize_compressed()
+
+
+def test_window_digits_and_schedule_grid():
+    """Digits rebuild their scalars, and the device grid places every
+    (window, nonzero digit) point exactly once."""
+    n, c = 21, 5
+    scalars = rand_scalars(n)
+    mont = to_mont(scalars, FR)
+    digits, stats = msm_pippenger.mont_digits(mont, c)
+    for i, s in enumerate(scalars):
+        assert sum(int(digits[w, i]) << (w * c) for w in range(digits.shape[0])) == s
+    metas = msm_pippenger._meta_from_stats(
+        [(w, int(o), max(int(m), 1)) for w, (o, m) in enumerate(stats.tolist())], lanes=64
+    )
+    for window_ids, segs, b_g, depth in metas:
+        ids = torch.tensor(window_ids)
+        idx, valid = msm_pippenger.device_grid_from_digits(
+            digits.index_select(0, ids), depth, segs, b_g, 0)
+        idx = idx.reshape(depth, len(window_ids), segs, b_g)
+        valid = valid.reshape(depth, len(window_ids), segs, b_g)
+        for slot, w in enumerate(window_ids):
+            for d in range(b_g):
+                members = sorted(idx[:, slot, :, d][valid[:, slot, :, d]].tolist())
+                expected = (digits[w] == d).nonzero().flatten().tolist() if d else []
+                assert members == expected, (w, d)
+
+
+def test_fixed_base_powers_match_reference():
+    scalars = [0, 1, P - 1] + rand_scalars(34)
+    std = torch.from_numpy(ints_to_limbs(scalars, FR.n_limbs).astype(np.int32))
+    jac = srs_device.fixed_base_powers_device(G, std)
+    expected = native.g1_fixed_base_raw(ref_curves.G1Point.generator(), scalars)  # [N, 18] u64
+    planes = np.ascontiguousarray(expected).view("<u2").reshape(-1, 3, 24).transpose(1, 2, 0)
+    assert torch.equal(torch.stack(jac), torch.from_numpy(planes.astype(np.int32)))
+    affine = srs_device.fixed_base_powers_affine(G, std)
+    assert torch.equal(affine, g1_limb.native_points_to_limb_major(
+        native.g1_normalize_arr(expected)))
