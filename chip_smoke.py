@@ -9,19 +9,39 @@ them, and when run outside a checkout of the repository.  Phases, each
 printed as one JSON line, any failure raising:
 
 1. the card's name and power limit (nvidia-smi);
-2. build: the CUDA field kernels from simpleworks_tpu_torch/csrc/;
-3. each kernel against its plain PyTorch version on the card, on seed-made
-   inputs with the edge values 0, 1 and p-1 mixed in, at the shapes the main
-   path gives it, compared exactly (field arithmetic is exact), and timed;
-4. the main path: KZG10 setup at the SRS degree of the Marlin prove of the
-   schnorr-verify circuit at SRS(100k, 25k, 300k), four commits of the
-   widths that prove commits, a batch opening of all four and the batch
-   check (True, then False with one evaluation changed), and a commitment
-   held against the host MSM over the SRS points read back;
-5. the kernels line: each kernel's launches during phase 4 (every one must
-   be > 0), its largest error against the plain version, and both times.
+2. build: the CUDA sources of simpleworks_tpu_torch/csrc/, one nvcc each,
+   started together;
+3. each field kernel against its plain PyTorch version on the card, on
+   seed-made inputs with the edge values 0, 1 and p-1 mixed in, at the
+   shapes the main path gives it, compared exactly (field arithmetic is
+   exact), and timed;
+4. the NTT: the reduce kernel against its plain version on the real
+   first-level planes of a seed-made 2^20-point transform (exact), the
+   round trip ifft(fft(x)) == x at 2^20, and fft against the pure-Python
+   ntt_host at 2^12 (which shows the limb matmul exact on the card);
+5. the KZG path: KZG10 setup at the SRS degree of the bench's Marlin prove,
+   four commits of the widths that prove commits, a batch opening and the
+   batch check (True, then False with one evaluation changed), and a
+   commitment held against the host MSM over the SRS points read back;
+6. the Marlin path at the bench's sizes: a square-add chain with n = 2^17
+   and m = 2^18 run through universal_setup(100k, 25k, 300k) -> index ->
+   prove (twice) -> verify (True; False with one evaluation or the public
+   input changed), with the seconds of each step, the prover's regions of
+   the warm prove, the proof size and the peak device memory;
+7. the card against the CPU: a square-add chain of 5 proved on both, equal
+   proof bytes (the CPU path is the one the tests hold against the JAX
+   package);
+8. the kernels line: each kernel's launches on the Marlin path (every one
+   must be > 0; the KZG path's own counts are in its line), its largest
+   error against the plain version, its time, the plain version's, and the
+   least time the card could take (bound_ms).
 
 The last line is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --profile
+
+adds, after the kernels line, one warm prove of the Marlin path under
+torch.profiler: the device's busy share of the prove and its busiest kernels.
 """
 
 from __future__ import annotations
@@ -51,13 +71,37 @@ HOST_CHECK_WIDTH = 256
 FQ_LANES = 19 * 8192
 FR_LANES = 1 << 19
 
-KERNEL_SOURCE = "simpleworks_tpu_torch/csrc/field_kernels.cu"
+#: the NTT checks: the reduce kernel and the round trip at 2^20 (the largest
+#: transform of the Marlin path, round 3's 4m), the oracle at 2^12
+NTT_LOG = 20
+ORACLE_LOG = 12
+#: the Marlin path: square-add chain x_{i+1} = x_i^2 + x_i of this many steps
+#: plus the input constraint gives 131,070 constraints, l = 2 and 131,072
+#: columns (n = 2^17) and 262,138 non-zeros in C (m = 2^18), the domains of
+#: the bench's schnorr prove, on the bench's SRS (degree 1,572,861)
+CHAIN_STEPS = 131_069
+SRS_SIZES = (100_000, 25_000, 300_000)
+PUBLIC_INPUT = 3
+#: the card-against-CPU pin: n = 8, m = 16 at SRS(16, 16, 32)
+PIN_STEPS = 5
+PIN_SRS_SIZES = (16, 16, 32)
+
+FIELD_SOURCE = "simpleworks_tpu_torch/csrc/field_kernels.cu"
+NTT_SOURCE = "simpleworks_tpu_torch/csrc/ntt_kernels.cu"
+SOURCES = {"mont_mul": FIELD_SOURCE, "mod_add": FIELD_SOURCE, "mod_sub": FIELD_SOURCE,
+           "mont_pow": FIELD_SOURCE, "ntt_reduce": NTT_SOURCE}
 REPLACES = {
     "mont_mul": "simpleworks_tpu/ops/mont_mul_pallas.py:105",
     "mod_add": "simpleworks_tpu/ops/mont_mul_pallas.py:130",
     "mod_sub": "simpleworks_tpu/ops/mont_mul_pallas.py:154",
     "mont_pow": "simpleworks_tpu/ops/mont_mul_pallas.py:111",
+    "ntt_reduce": "simpleworks_tpu/ops/ntt_mxu.py:95",
 }
+#: H100 SXM: device memory rate (bytes/s) and streaming multiprocessors
+HBM_BYTES_PER_S = 3.35e12
+SMS = 132
+#: 32-bit integer multiply-adds an SM issues a clock
+IMAD_PER_SM_CLOCK = 64
 
 
 def emit(obj) -> None:
@@ -128,7 +172,7 @@ def check_kernels(device, fr_lanes: int = FR_LANES, fq_lanes: int = FQ_LANES,
     from simpleworks_tpu_torch.fields.device import FQ, FR
     from simpleworks_tpu_torch.ops import mont_mul as mm
 
-    results: dict[str, list] = {name: [] for name in REPLACES}
+    results: dict[str, list] = {name: [] for name in REPLACES if name != "ntt_reduce"}
 
     def record(name, shape, got, plain, ms, plain_ms):
         err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max()) if got.numel() else 0
@@ -161,6 +205,222 @@ def check_kernels(device, fr_lanes: int = FR_LANES, fq_lanes: int = FQ_LANES,
             if not row["equal"]:
                 raise AssertionError(f"{name} kernel disagrees with its plain version at {row['shape']}")
     return results
+
+
+def check_ntt(device, log_n: int = NTT_LOG, oracle_log: int = ORACLE_LOG) -> dict:
+    """The reduce kernel against its plain version on real first-level
+    planes (exact), the NTT round trip at 2^log_n, and fft against the
+    pure-Python ntt_host at 2^oracle_log."""
+    import torch
+
+    from simpleworks_tpu_torch.fields import dvec
+    from simpleworks_tpu_torch.fields.bls12_377 import fr_root_of_unity
+    from simpleworks_tpu_torch.ops import ntt
+    from simpleworks_tpu_torch.poly.domain import ntt_host
+
+    n = 1 << log_n
+    x = random_poly(n, 7, device)
+    t0 = time.perf_counter()
+    transform = ntt.get_ntt(n, device)
+    sync(device)
+    tables_s = time.perf_counter() - t0
+    planes = transform.partial_planes(x)
+    if int(planes.max()) >= 1 << 29 or int(planes.min()) < 0:
+        raise AssertionError("partial planes outside the reduce kernel's bound")
+    got, ref = ntt.ntt_reduce(planes), ntt.ntt_reduce_plain(planes)
+    sync(device)
+    err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    reduce_row = {"shape": list(planes.shape), "equal": bool(torch.equal(got, ref)),
+                  "max_abs_err": err,
+                  "ms": time_ms(lambda: ntt.ntt_reduce(planes), device, inner=20, queue_ahead=True),
+                  "plain_ms": time_ms(lambda: ntt.ntt_reduce_plain(planes), device, reps=3)}
+    if not reduce_row["equal"]:
+        raise AssertionError(f"ntt_reduce kernel disagrees with its plain version at {list(planes.shape)}")
+    del planes, got, ref
+
+    y = dvec.fft(x, n)
+    back = dvec.ifft(y, n)
+    if not torch.equal(back, x):
+        raise AssertionError(f"ifft(fft(x)) != x at 2^{log_n}")
+    fft_ms = time_ms(lambda: dvec.fft(x, n), device, reps=3)
+    ifft_ms = time_ms(lambda: dvec.ifft(y, n), device, reps=3)
+    del y, back
+
+    m = 1 << oracle_log
+    xs = random_poly(m, 8, device)
+    if dvec.to_ints(dvec.fft(xs, m)) != ntt_host(dvec.to_ints(xs), fr_root_of_unity(m)):
+        raise AssertionError(f"fft differs from ntt_host at 2^{oracle_log}")
+    return {"reduce": reduce_row, "roundtrip_log_n": log_n, "tables_s": tables_s,
+            "fft_ms": fft_ms, "ifft_ms": ifft_ms, "oracle_log_n": oracle_log,
+            "oracle_equal": True}
+
+
+def square_add_chain(steps: int, x: int = PUBLIC_INPUT):
+    """Public input x, witness x_0 = x, and the constraints (x - x_0)·1 = 0
+    and x_i·x_i = x_{i+1} - x_i: a chain of raw R1CS variables (the pattern
+    of the reference's prover tests) whose C rows hold two terms."""
+    from simpleworks_tpu_torch.fields.bls12_377 import FR_MODULUS as P
+    from simpleworks_tpu_torch.fields.bls12_377 import ConstraintF
+    from simpleworks_tpu_torch.r1cs.constraint_system import ONE, ConstraintSystem
+
+    cs = ConstraintSystem(ConstraintF)
+    a = cs.new_input_variable(x)
+    cur_val = x
+    cur = cs.new_witness_variable(cur_val)
+    cs.enforce_constraint(cs.lc((1, a)) - cs.lc((1, cur)), cs.lc((1, ONE)), cs.lc())
+    for _ in range(steps):
+        nxt_val = (cur_val * cur_val + cur_val) % P
+        nxt = cs.new_witness_variable(nxt_val)
+        cs.enforce_constraint(cs.lc((1, cur)), cs.lc((1, cur)), cs.lc((1, nxt)) - cs.lc((1, cur)))
+        cur, cur_val = nxt, nxt_val
+    return cs
+
+
+def run_marlin(device, steps: int = CHAIN_STEPS, sizes=SRS_SIZES) -> dict:
+    """synthesis -> universal_setup -> index -> prove (twice) -> verify through
+    the port's public functions; returns the seconds of each step and what
+    the checks saw.  Raises on a wrong result."""
+    import dataclasses
+
+    import torch
+
+    from simpleworks_tpu_torch import marlin
+    from simpleworks_tpu_torch.fields.bls12_377 import FR_MODULUS
+    from simpleworks_tpu_torch.marlin import ahp
+    from simpleworks_tpu_torch.marlin.serialization import serialize_proof
+    from simpleworks_tpu_torch.utils.observability import PROVER_TIMER
+
+    steps_s: dict[str, float] = {}
+
+    def timed(name, fn):
+        sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        steps_s[name] = time.perf_counter() - t0
+        return out
+
+    cs = timed("synthesis_s", lambda: square_add_chain(steps))
+    srs = timed("setup_s", lambda: marlin.universal_setup(*sizes, marlin.generate_rand(),
+                                                          device=device))
+    PROVER_TIMER.reset()
+    PROVER_TIMER.synchronize = True
+    pk, vk = timed("index_s", lambda: marlin.index(srs, cs))
+    index_regions = dict(PROVER_TIMER.totals)
+    info = vk.info
+    expected = ahp.max_degree_for(*sizes)
+    if srs.max_degree != expected:
+        raise AssertionError(f"SRS degree {srs.max_degree} != {expected}")
+    shape = {"n": info.domain_h_size, "m": info.domain_k_size, "ell": info.num_instance_padded,
+             "constraints": info.num_constraints, "non_zero": info.num_non_zero}
+    proof_cold = timed("prove_cold_s", lambda: marlin.prove(pk, cs))
+    PROVER_TIMER.reset()
+    proof = timed("prove_warm_s", lambda: marlin.prove(pk, cs))
+    regions = dict(PROVER_TIMER.totals)
+    PROVER_TIMER.synchronize = False
+    if serialize_proof(proof) != serialize_proof(proof_cold):
+        raise AssertionError("the two proves of one circuit differ")
+    accepted = timed("verify_s", lambda: marlin.verify(vk, [PUBLIC_INPUT], proof))
+    bad_evals = dict(proof.evaluations)
+    bad_evals["w"] = (bad_evals["w"] + 1) % FR_MODULUS
+    tampered = dataclasses.replace(proof, evaluations=bad_evals)
+    rejected_eval = not marlin.verify(vk, [PUBLIC_INPUT], tampered)
+    rejected_input = not marlin.verify(vk, [PUBLIC_INPUT + 1], proof)
+    if not (accepted and rejected_eval and rejected_input):
+        raise AssertionError(f"verify: accepted={accepted}, rejected tampered evaluation="
+                             f"{rejected_eval}, rejected changed input={rejected_input}")
+    return {"shape": shape, "srs_max_degree": srs.max_degree, "steps": steps_s,
+            "index_regions": index_regions, "prove_warm_regions": regions,
+            "proof_bytes": len(serialize_proof(proof)), "verify": accepted,
+            "verify_tampered_evaluation": not rejected_eval,
+            "verify_changed_input": not rejected_input}
+
+
+def run_pin(device, steps: int = PIN_STEPS, sizes=PIN_SRS_SIZES) -> dict:
+    """One small circuit proved on the card and on the CPU: equal bytes."""
+    import torch
+
+    from simpleworks_tpu_torch import marlin
+    from simpleworks_tpu_torch.marlin.serialization import serialize_proof
+
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        cs = square_add_chain(steps)
+        srs = marlin.universal_setup(*sizes, marlin.generate_rand(), device=dev)
+        pk, vk = marlin.index(srs, cs)
+        proof = marlin.prove(pk, cs)
+        if not marlin.verify(vk, [PUBLIC_INPUT], proof):
+            raise AssertionError(f"the pin's proof on {dev} does not verify")
+        out[dev.type] = serialize_proof(proof)
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError("proof bytes differ between the card and the CPU")
+    return {"steps": steps, "srs_sizes": list(sizes), "proof_bytes": len(out["cuda"]),
+            "equal_bytes": True}
+
+
+def profile_prove(device, steps: int = CHAIN_STEPS, sizes=SRS_SIZES, top: int = 15) -> dict:
+    """One warm prove of the Marlin path under torch.profiler: the device's
+    busy time (the sum of its kernel, copy and fill intervals, which one
+    stream runs one at a time) against the prove's wall time, the busiest
+    device names, and the host's kernel-launch calls."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from simpleworks_tpu_torch import marlin
+
+    cs = square_add_chain(steps)
+    srs = marlin.universal_setup(*sizes, marlin.generate_rand(), device=device)
+    pk, _ = marlin.index(srs, cs)
+    marlin.prove(pk, cs)  # cold: the transform tables are built here
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        marlin.prove(pk, cs)
+        sync(device)
+        wall_s = time.perf_counter() - t0
+    busy_us: dict[str, float] = defaultdict(float)
+    count: dict[str, int] = defaultdict(int)
+    launches = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy_us[e.name] += e.time_range.elapsed_us()
+            count[e.name] += 1
+        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
+            launches += 1
+    busy_s = sum(busy_us.values()) / 1e6
+    if busy_s <= 0:
+        raise AssertionError("the profiler saw no device time in the prove")
+    ranked = sorted(busy_us, key=busy_us.get, reverse=True)[:top]
+    return {"wall_s": wall_s, "device_busy_s": busy_s, "busy_share": busy_s / wall_s,
+            "host_launch_calls": launches,
+            "top": [{"name": k[:80], "s": busy_us[k] / 1e6, "count": count[k]} for k in ranked]}
+
+
+def bound_ms(name: str, shape, clock_mhz: float, exponent: int | None = None) -> tuple[float, str]:
+    """The least time the card could take for one call at ``shape``: the
+    larger of the bytes moved (each input read once, each output written
+    once) over the memory rate and the 32-bit multiply-adds over
+    SMS x IMAD_PER_SM_CLOCK x the SM clock.  A 32 x 32 -> 64-bit product
+    counts as one multiply-add."""
+    rows, lanes = shape
+    imad_per_s = SMS * IMAD_PER_SM_CLOCK * clock_mhz * 1e6
+    if name == "ntt_reduce":
+        nbytes = (rows + 16) * 4 * lanes
+        ops = lanes * (17 * 16 + 17)  # 17 REDC rounds of 16 limb products, plus m
+    else:
+        words = rows // 2  # 32-bit words of the field
+        mul_ops = 2 * words * words  # CIOS: N^2 products for a·b, N^2 for m·p
+        if name == "mont_pow":
+            nbytes = 2 * rows * 4 * lanes
+            ops = lanes * mul_ops * (exponent.bit_length() + bin(exponent).count("1"))
+        else:
+            nbytes = 3 * rows * 4 * lanes
+            ops = lanes * (mul_ops if name == "mont_mul" else 2 * words)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / imad_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def random_poly(width: int, seed: int, device):
@@ -253,56 +513,91 @@ def run_slice(device, max_degree: int = MAX_DEGREE, polys=POLYS,
             "host_msm_equal": True}
 
 
-def main() -> int:
+def smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main(argv: list[str]) -> int:
     import torch
 
+    if argv not in ([], ["--profile"]):
+        print("usage: chip_smoke.py [--profile]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
     try:
-        from simpleworks_tpu_torch.ops import _build, mont_mul
+        from simpleworks_tpu_torch.kzg import kzg10
+        from simpleworks_tpu_torch.ops import _build
     except ImportError as exc:
         print(f"chip_smoke: run from the root of a checkout of the repository ({exc})",
               file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(smi("name,power.limit"), flush=True)
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
 
     t0 = time.perf_counter()
-    library = _build.build()
-    _build.library()
+    libraries = _build.build_all()
+    for stem in _build.SIGNATURES:
+        _build.library(stem)
     emit({"build": {"seconds": time.perf_counter() - t0, "nvcc_seconds": _build.build_seconds,
-                    "library": library.name}})
+                    "libraries": [lib.name for lib in libraries]}})
 
     checks = check_kernels(device)
     emit({"kernel_checks": checks})
+    ntt_checks = check_ntt(device)
+    emit({"ntt_checks": ntt_checks})
+    checks["ntt_reduce"] = [ntt_checks["reduce"]]
 
-    mont_mul.reset_launches()
-    torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.perf_counter()
-    result = run_slice(device)
-    launches = dict(mont_mul.LAUNCHES)
-    result["seconds"] = time.perf_counter() - t0
-    result["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
-    emit({"slice": result})
+    def drive(label, path, fn):
+        """Runs one path with the launch counts set to 0 just before it and
+        read just after; every kernel of ``path`` must have launched."""
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize(device)
+        result["seconds"] = time.perf_counter() - t0
+        result["launches"] = dict(_build.LAUNCHES)
+        result["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+        idle = [k for k in path if result["launches"][k] <= 0]
+        if idle:
+            raise AssertionError(f"kernels never launched on the {label} path: {idle}")
+        return result
+
+    kzg = drive("KZG", ["mont_mul", "mod_add", "mod_sub", "mont_pow"], lambda: run_slice(device))
+    emit({"kzg_slice": kzg})
+    kzg10._SRS_MEMO.clear()  # the Marlin path's setup is timed, not read from the memo
+    marlin_run = drive("Marlin", list(REPLACES), lambda: run_marlin(device))
+    emit({"marlin": marlin_run})
+    emit({"pin": run_pin(device)})
+
+    from simpleworks_tpu_torch.fields.device import FQ, FR
 
     kernels = []
     for name, rows in checks.items():
         main_row = rows[-1]  # the Fq shape for the binary ops, the Fr pow
+        for row in rows:
+            # the pow's exponent is the Fermat one of the row's field
+            exponent = (FR if row["shape"][0] == 16 else FQ).p - 2 if name == "mont_pow" else None
+            row["bound_ms"], row["bound_by"] = bound_ms(name, row["shape"], clock_mhz, exponent)
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "shape": main_row["shape"],
-            "equal": all(r["equal"] for r in rows),
-            "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms")} for r in rows],
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": marlin_run["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"], "library_ms": None,
+            "shape": main_row["shape"], "equal": all(r["equal"] for r in rows),
+            "kzg_launches": kzg["launches"][name],
+            "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")} for r in rows],
         })
     emit({"kernels": kernels})
-    idle = [k["name"] for k in kernels if k["launches"] <= 0]
-    if idle:
-        raise AssertionError(f"kernels never launched on the main path: {idle}")
+    if argv == ["--profile"]:
+        emit({"profile": profile_prove(device)})
 
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -310,4 +605,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -17,6 +17,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..device import resolve
 from .bls12_377 import Fq, Fr
 from .host import FieldParams
 
@@ -83,13 +84,13 @@ def limbs_to_ints(limbs) -> list[int]:
     ]
 
 
-def to_limbs_tensor(values: Sequence[int], field: LimbField, device="cpu") -> torch.Tensor:
+def to_limbs_tensor(values: Sequence[int], field: LimbField, device=None) -> torch.Tensor:
     """Ints (already in the representation wanted) -> [L, N] int32 tensor."""
     arr = ints_to_limbs(values, field.n_limbs).astype(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(resolve(device))
 
 
-def to_mont(values: Sequence[int], field: LimbField, device="cpu") -> torch.Tensor:
+def to_mont(values: Sequence[int], field: LimbField, device=None) -> torch.Tensor:
     """Standard-form ints -> [L, N] Montgomery limb tensor."""
     p, r = field.p, field.r
     return to_limbs_tensor([int(v) % p * r % p for v in values], field, device)
@@ -102,19 +103,19 @@ def from_mont(t: torch.Tensor, field: LimbField) -> list[int]:
     return [v * rinv % p for v in limbs_to_ints(t)]
 
 
-def mont_scalar(value: int, field: LimbField = FR, device="cpu") -> torch.Tensor:
+def mont_scalar(value: int, field: LimbField = FR, device=None) -> torch.Tensor:
     """[L, 1] Montgomery limb column of one standard-form scalar."""
     return to_mont([value], field, device)
 
 
-def from_reference_limbs(arr: np.ndarray, device="cpu") -> torch.Tensor:
+def from_reference_limbs(arr: np.ndarray, device=None) -> torch.Tensor:
     """The JAX package's [L, B] uint32 limb array -> the port's int32 tensor."""
     a = np.asarray(arr)
     if a.ndim != 2 or a.shape[0] not in (FR.n_limbs, FQ.n_limbs):
         raise ValueError(f"expected an [L, B] limb array with L in (16, 24), got {a.shape}")
     if a.size and int(a.max()) > 0xFFFF:
         raise ValueError("limbs must be 16-bit values")
-    return torch.from_numpy(np.ascontiguousarray(a.astype(np.int32))).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a.astype(np.int32))).to(resolve(device))
 
 
 def to_reference_limbs(t: torch.Tensor) -> np.ndarray:

@@ -9,11 +9,10 @@ width is accepted as it is: the kernels mask their own ragged edge.
 
 Sequential-looking polynomial ops are log-depth device programs:
 divide-by-linear is a powers build, two multiplies and a log-step suffix
-scan of modular adds; evaluation is a powers build, a multiply and a
-halving tree of modular adds.
-
-The transforms (``fft``/``ifft``) and ``divide_by_vanishing`` come with the
-NTT port; they are not part of this module yet.
+scan of modular adds; divide-by-vanishing is the same scan with a stride of
+one block; evaluation is a powers build, a multiply and a halving tree of
+modular adds.  The transforms (``fft``/``ifft``) run the NTT of
+:mod:`simpleworks_tpu_torch.ops.ntt` on the vector's device.
 """
 
 from __future__ import annotations
@@ -23,7 +22,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..errors import ensure
 from ..ops.mont_mul import FR, mod_add, mod_sub, mont_mul, mont_pow
+from ..ops.ntt import get_ntt
+from ..device import resolve
 from .bls12_377 import FR_MODULUS
 from .device import from_mont, limbs_to_ints, mont_scalar, to_mont
 
@@ -76,8 +78,8 @@ def to_standard(a: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------- reshape ----
 
 
-def zeros(n: int, device) -> torch.Tensor:
-    return torch.zeros((L, n), dtype=torch.int32, device=device)
+def zeros(n: int, device=None) -> torch.Tensor:
+    return torch.zeros((L, n), dtype=torch.int32, device=resolve(device))
 
 
 def pad_to(a: torch.Tensor, n: int) -> torch.Tensor:
@@ -87,7 +89,7 @@ def pad_to(a: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([a, zeros(n - cur, a.device)], dim=1)
 
 
-def const_vec(value: int, n: int, device) -> torch.Tensor:
+def const_vec(value: int, n: int, device=None) -> torch.Tensor:
     """[16, n] Montgomery view of one repeated constant."""
     return mont_scalar(value, FR, device).expand(L, n)
 
@@ -127,14 +129,28 @@ def sum_reduce(a: torch.Tensor) -> torch.Tensor:
     return a
 
 
-def suffix_sum(a: torch.Tensor) -> torch.Tensor:
-    """S_j = Σ_{t≥j} a_t: a log-step (Hillis-Steele) scan of modular adds."""
+def suffix_sum(a: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """S_j = Σ_{t≥0} a_{j + t·stride}: a log-step (Hillis-Steele) scan of
+    modular adds over the lanes ``stride`` apart."""
     n = a.shape[1]
-    k = 1
+    k = stride
     while k < n:
         a = torch.cat([add(a[:, : n - k], a[:, k:]), a[:, n - k :]], dim=1)
         k <<= 1
     return a
+
+
+def divide_by_vanishing(a: torch.Tensor, ell: int):
+    """(quotient [16, N − ell], remainder [16, ell]) of the [16, N]
+    coefficient tensor's division by X^ell − 1: the remainder block is the
+    sum of all blocks of ``ell`` coefficients and quotient block b the sum
+    of the blocks above it, one strided suffix scan."""
+    n = a.shape[1]
+    if n <= ell:
+        return a[:, :0], a
+    k = -(-n // ell)  # blocks
+    s = suffix_sum(pad_to(a, k * ell), stride=ell)
+    return s[:, ell:n], s[:, :ell]
 
 
 def divide_by_linear(a: torch.Tensor, z: int):
@@ -163,8 +179,9 @@ def evaluate(a: torch.Tensor, z: int) -> torch.Tensor:
     return sum_reduce(mul(a, powers_vec(z, n, a.device)))
 
 
-def powers_vec(base: int, n: int, device) -> torch.Tensor:
+def powers_vec(base: int, n: int, device=None) -> torch.Tensor:
     """[16, n] Montgomery tensor [1, z, z², …] by log-doubling (~log n muls)."""
+    device = resolve(device)
     out = mont_scalar(1, FR, device)
     width = 1
     while width < n:
@@ -175,10 +192,25 @@ def powers_vec(base: int, n: int, device) -> torch.Tensor:
     return out[:, :n]
 
 
+# ------------------------------------------------------------- transforms ----
+
+
+def fft(a: torch.Tensor, n: int) -> torch.Tensor:
+    """coefficients [16, ≤ n] -> evaluations [16, n] over the size-n domain
+    (natural order, Montgomery in and out)."""
+    ensure(a.shape[1] <= n, f"{a.shape[1]} coefficients exceed the domain of {n}")
+    return get_ntt(n, a.device).fft_mont(pad_to(a, n))
+
+
+def ifft(a: torch.Tensor, n: int) -> torch.Tensor:
+    """evaluations [16, n] -> coefficients (1/n folded in)."""
+    return get_ntt(n, a.device).ifft_mont(a)
+
+
 # ------------------------------------------------------------ host bridge ----
 
 
-def from_ints(values: Sequence[int], device) -> torch.Tensor:
+def from_ints(values: Sequence[int], device=None) -> torch.Tensor:
     """Standard-form ints -> [16, N] Montgomery tensor on ``device``."""
     return to_mont(values, FR, device)
 

@@ -29,6 +29,7 @@ import torch
 from ..curves.bls12_377 import G1Point, G2Point
 from ..curves.fq_tower import Fq12
 from ..curves.pairing import multi_pairing
+from ..device import resolve
 from ..errors import ensure
 from ..fields import dvec
 from ..fields.bls12_377 import FR_MODULUS, Fr
@@ -106,11 +107,13 @@ _SRS_MEMO: dict[tuple, UniversalSRS] = {}
 _SRS_MEMO_MAX = 2
 
 
-def setup(max_degree: int, rng, device="cpu") -> UniversalSRS:
-    """Sample τ, γ and build the powers tables on ``device``."""
+def setup(max_degree: int, rng, device=None) -> UniversalSRS:
+    """Sample τ, γ and build the powers tables on ``device`` (the card by
+    default)."""
+    device = resolve(device)
     tau = Fr.rand(rng).value
     gamma = Fr.rand(rng).value
-    memo_key = (max_degree, tau, gamma, str(torch.device(device)))
+    memo_key = (max_degree, tau, gamma, str(device))
     cached = _SRS_MEMO.get(memo_key)
     if cached is not None:
         return cached
@@ -128,13 +131,13 @@ def _setup_uncached(max_degree: int, tau: int, gamma: int, device) -> UniversalS
     table = FixedBaseMSM(g, window_bits=8)
     gamma_powers = [table.mul(gamma * pow(tau, i, P) % P) for i in range(NUM_GAMMA_POWERS)]
     # τ^0..τ^D built on the device (log-doubling), then out of Montgomery form
-    tau_powers = dvec.to_standard(dvec.powers_vec(tau, max_degree + 1, torch.device(device)))
+    tau_powers = dvec.to_standard(dvec.powers_vec(tau, max_degree + 1, device))
     powers_xy = fixed_base_powers_affine(g, tau_powers)
     return UniversalSRS(powers_xy, h, beta_h, gamma_powers)
 
 
 def srs_from_reference(powers_native: np.ndarray, h_bytes: bytes, beta_h_bytes: bytes,
-                       gamma_bytes: list[bytes], device="cpu") -> UniversalSRS:
+                       gamma_bytes: list[bytes], device=None) -> UniversalSRS:
     """The JAX package's SRS storage — its [N, 18] u64 Montgomery powers table
     (normalised to Z = 1) and compressed H, βH and γ powers — as the port's
     :class:`UniversalSRS`, so both packages can compute on one state."""
@@ -208,6 +211,23 @@ def _gamma_msm(srs: UniversalSRS, coeffs: list[int]) -> G1Point:
 
 # -------------------------------------------------------- commit and open --
 
+#: CPU tensors at most this wide take the host Pippenger over the SRS points
+#: read back: on the CPU the tensor MSM runs through the plain field
+#: versions and costs ~0.6 s even for a few points.  CUDA tensors always take
+#: the device MSM.
+HOST_MSM_MAX_WIDTH = 64
+
+
+def _srs_msm(srs: UniversalSRS, coeffs: torch.Tensor, offset: int = 0) -> G1Point:
+    """MSM of the [16, n] Montgomery coefficients against SRS powers
+    offset..offset+n."""
+    n = coeffs.shape[1]
+    if coeffs.device.type == "cpu" and n <= HOST_MSM_MAX_WIDTH:
+        points = g1_limb.points_from_affine_planes(srs.powers_xy[:, :, offset : offset + n])
+        return msm(points, dvec.to_ints(coeffs))
+    return msm_device_mont(srs.powers_xy, coeffs, offset=offset)
+
+
 
 def true_width(poly: torch.Tensor) -> int:
     """1 + the degree of a [16, n] coefficient tensor (trailing zeros
@@ -227,7 +247,7 @@ def commit(srs: UniversalSRS, poly: torch.Tensor, degree_bound: Optional[int] = 
     n = true_width(poly)
     ensure(n - 1 <= srs.max_degree, "polynomial exceeds SRS degree")
     coeffs = poly[:, :n]
-    c = msm_device_mont(srs.powers_xy, coeffs) if n else G1Point.identity()
+    c = _srs_msm(srs, coeffs) if n else G1Point.identity()
     rand = None
     if hiding_rng is not None:
         rand = Randomness.rand(hiding_rng, has_shift=degree_bound is not None)
@@ -236,7 +256,7 @@ def commit(srs: UniversalSRS, poly: torch.Tensor, degree_bound: Optional[int] = 
     if degree_bound is not None:
         ensure(n - 1 <= degree_bound, f"polynomial degree {n - 1} exceeds bound {degree_bound}")
         shift = srs.max_degree - degree_bound
-        shifted = msm_device_mont(srs.powers_xy, coeffs, offset=shift) if n else G1Point.identity()
+        shifted = _srs_msm(srs, coeffs, offset=shift) if n else G1Point.identity()
         if rand is not None:
             shifted = shifted.add(_gamma_msm(srs, rand.shifted_blind))
     comm = Commitment(comm=c, shifted_comm=shifted, degree_bound=degree_bound)
@@ -289,13 +309,13 @@ def batch_open(
 
     witness, _rem = dvec.divide_by_linear(acc, point)
     n = true_width(witness)
-    w_point = msm_device_mont(srs.powers_xy, witness[:, :n]) if n else G1Point.identity()
+    w_point = _srs_msm(srs, witness[:, :n]) if n else G1Point.identity()
     for w, poly, shift in shifted_terms:
         quot, _rem = dvec.divide_by_linear(poly, point)
         n = true_width(quot)
         if n:
             scaled = dvec.scale(quot[:, :n], mont_scalar(w, FR, dev))
-            w_point = w_point.add(msm_device_mont(srs.powers_xy, scaled, offset=shift))
+            w_point = w_point.add(_srs_msm(srs, scaled, offset=shift))
     random_v = 0
     if combined_blind:
         random_v = _poly_eval(combined_blind, point)

@@ -1,10 +1,14 @@
-"""Builds the package's CUDA sources into a shared library and loads it.
+"""Builds the package's CUDA sources into shared libraries and loads them.
 
 Route: ``nvcc`` into a shared object with a plain C interface, bound with
-``ctypes`` (no PyTorch headers, so a build takes seconds).  The library is
-built at first use from the sources under ``simpleworks_tpu_torch/csrc/``
-into ``simpleworks_tpu_torch/csrc/build/`` (git-ignored), named by a hash of
-the source and flags so an edited source never loads a stale build.
+``ctypes`` (no PyTorch headers, so a build takes seconds).  Each source under
+``simpleworks_tpu_torch/csrc/`` is built at first use into
+``simpleworks_tpu_torch/csrc/build/`` (git-ignored), named by a hash of the
+source and flags so an edited source never loads a stale build.
+:func:`build_all` starts one ``nvcc`` per source, all at once.
+
+``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
+where it launches its kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -27,17 +31,32 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _BINARY_ARGS = [ctypes.c_int, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P, ctypes.c_uint32, _P, _P]
-_SIGNATURES = {
-    "swt_mont_mul": _BINARY_ARGS,
-    "swt_mod_add": _BINARY_ARGS,
-    "swt_mod_sub": _BINARY_ARGS,
-    "swt_mont_pow": [ctypes.c_int, _P, _I64, _I64, _P, _I64, _P, ctypes.c_uint32, _P,
-                     _P, ctypes.c_int, ctypes.c_int, _P],
+#: source stem -> {C symbol: argtypes}
+SIGNATURES = {
+    "field_kernels": {
+        "swt_mont_mul": _BINARY_ARGS,
+        "swt_mod_add": _BINARY_ARGS,
+        "swt_mod_sub": _BINARY_ARGS,
+        "swt_mont_pow": [ctypes.c_int, _P, _I64, _I64, _P, _I64, _P, ctypes.c_uint32, _P,
+                         _P, ctypes.c_int, ctypes.c_int, _P],
+    },
+    "ntt_kernels": {
+        "swt_ntt_reduce": [_P, _I64, _P, _I64, _P, ctypes.c_uint32, _P],
+    },
 }
 
-_lib: ctypes.CDLL | None = None
-#: seconds nvcc took in this process (0.0 while only a cached build was loaded)
+#: kernel launches by kernel name since the last :func:`reset_launches`
+LAUNCHES = {"mont_mul": 0, "mod_add": 0, "mod_sub": 0, "mont_pow": 0, "ntt_reduce": 0}
+
+_libs: dict[str, ctypes.CDLL] = {}
+#: seconds of wall clock the builds took in this process (0.0 while only
+#: cached builds were loaded)
 build_seconds = 0.0
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -53,34 +72,48 @@ def _library_path(source: Path) -> Path:
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
-def build(source: Path = CSRC / "field_kernels.cu") -> Path:
-    """Compiles ``source`` unless a build of this exact source exists."""
+def build_all(stems=tuple(SIGNATURES)) -> list[Path]:
+    """Compiles every source of ``stems`` that has no build of its exact
+    text yet, one ``nvcc`` process per source, all started together."""
     global build_seconds
-    out = _library_path(source)
-    if out.exists():
-        return out
+    outs = [_library_path(CSRC / f"{stem}.cu") for stem in stems]
+    todo = [(stem, out) for stem, out in zip(stems, outs) if not out.exists()]
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-        capture_output=True, text=True, check=False,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
+    procs = []
+    for stem, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        procs.append((stem, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for stem, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {stem}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
     build_seconds += time.perf_counter() - t0
-    return out
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, args in _SIGNATURES.items():
+def build(stem: str = "field_kernels") -> Path:
+    """Compiles one source unless a build of its exact text exists."""
+    return build_all((stem,))[0]
+
+
+def library(stem: str = "field_kernels") -> ctypes.CDLL:
+    """The loaded kernel library of ``csrc/<stem>.cu`` (built on first call)."""
+    lib = _libs.get(stem)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(stem)))
+        for name, args in SIGNATURES[stem].items():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[stem] = lib
+    return lib

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..curves.bls12_377 import G1Point
+from ..device import resolve
 from ..fields.bls12_377 import FQ_MODULUS
 from ..fields.device import FQ, from_mont, to_mont
 from .mont_mul import mod_add, mod_sub, mont_mul, mont_pow
@@ -279,7 +280,7 @@ def normalize_affine(xyz):
 # -------------------------------------------------------- host bridge ----
 
 
-def points_to_limb_major(points, device="cpu") -> tuple:
+def points_to_limb_major(points, device=None) -> tuple:
     """Host G1Points -> ([24, N],)*3 Montgomery tensors, Jacobian
     coordinates kept as they are."""
     return tuple(
@@ -287,7 +288,7 @@ def points_to_limb_major(points, device="cpu") -> tuple:
     )
 
 
-def points_to_limb_major_affine(points, device="cpu") -> tuple:
+def points_to_limb_major_affine(points, device=None) -> tuple:
     """Host G1Points -> ([24, N],)*3 tensors under the MSM's affine
     invariant (Z = 1; the identity packs as x = y = z = 0)."""
     norm = []
@@ -300,7 +301,7 @@ def points_to_limb_major_affine(points, device="cpu") -> tuple:
     return points_to_limb_major(norm, device)
 
 
-def native_points_to_limb_major(points_native: np.ndarray, device="cpu") -> torch.Tensor:
+def native_points_to_limb_major(points_native: np.ndarray, device=None) -> torch.Tensor:
     """[N, 18] u64 Jacobian Montgomery rows (the JAX package's SRS storage)
     -> one [2, 24, N] int32 tensor of the X/Y planes, a view and transpose
     with no bigints.  The rows must satisfy the affine invariant (Z = R mod q,
@@ -315,7 +316,7 @@ def native_points_to_limb_major(points_native: np.ndarray, device="cpu") -> torc
         raise ValueError("point table violates the affine invariant (Z != 1): normalize it first")
     u16 = rows.view("<u2").reshape(-1, 3, L)
     coords = u16[:, :2].astype(np.int32).transpose(1, 2, 0)  # [2, 24, N]
-    return torch.from_numpy(np.ascontiguousarray(coords)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(coords)).to(resolve(device))
 
 
 def points_from_limb_major(batch) -> list:

@@ -14,30 +14,25 @@ column with ``.expand``; sliced views are fine, the kernels take strides):
 * a tensor on CUDA goes to the CUDA kernel of ``csrc/field_kernels.cu``, or
   the wrapper raises.  There is no fallback between the two.
 
-``LAUNCHES`` counts kernel launches per op, so a run can show that its path
-went through the kernels; only a CUDA launch adds to it.
+``LAUNCHES`` (kept in :mod:`._build` with the NTT's count) counts kernel
+launches per op, so a run can show that its path went through the kernels;
+only a CUDA launch adds to it.
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import torch
 
 from ..fields.device import FQ, FR, LIMB_BITS, LIMB_MASK, LimbField, split_words
+from ._build import LAUNCHES, reset_launches
 
 __all__ = [
     "FR", "FQ", "LimbField", "LAUNCHES", "reset_launches", "mont_mul", "mod_add", "mod_sub",
     "mont_pow", "mont_mul_plain", "mod_add_plain", "mod_sub_plain", "mont_pow_plain",
 ]
-
-#: kernel launches per op since the last :func:`reset_launches`
-LAUNCHES = {"mont_mul": 0, "mod_add": 0, "mod_sub": 0, "mont_pow": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 # ------------------------------------------------------------ plain versions --
@@ -74,17 +69,24 @@ def _reduce_once(v: torch.Tensor, carry: torch.Tensor, field: LimbField) -> torc
     return torch.where((carry > 0) | _geq(v, field), diff, v).to(torch.int32)
 
 
+@lru_cache(maxsize=8)
+def _diagonals(n_limbs: int, device: torch.device) -> torch.Tensor:
+    """[L·L] int64: row i·L + j of the limb outer product adds to column i + j."""
+    i = torch.arange(n_limbs, device=device)
+    return (i[:, None] + i[None, :]).reshape(-1)
+
+
 def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.Tensor:
     """a·b·R⁻¹ mod p: schoolbook product, 16-bit REDC, one conditional
     subtract — the arithmetic of the Pallas ``_mul_body``."""
     L = field.n_limbs
     a64, b64 = a.to(torch.int64), b.to(torch.int64)
     t = torch.zeros((2 * L + 1, a.shape[1]), dtype=torch.int64, device=a.device)
-    for i in range(L):  # column sums stay < 2L·2^32: no carries needed yet
-        t[i : i + L] += a64[i] * b64
+    # column sums of the limb outer product stay < 2L·2^32: no carries yet
+    t.index_add_(0, _diagonals(L, a.device), (a64[:, None, :] * b64[None, :, :]).reshape(L * L, -1))
     p = field.col(field.p_limbs, a.device, torch.int64)
     for i in range(L):
-        m = ((t[i] & LIMB_MASK) * field.n0_16) & LIMB_MASK
+        m = (t[i] * field.n0_16) & LIMB_MASK  # t[i] < 2^40: no int64 overflow
         t[i : i + L] += m * p
         t[i + 1] += t[i] >> LIMB_BITS  # row i is now ≡ 0 mod 2^16
     res, carry = _normalize(t[L:])  # rows L..2L: V < 2p, so row 2L is 0 or 1

@@ -1,5 +1,6 @@
-"""The port's CUDA field kernels against their plain PyTorch versions, on the
-card (exact equality: field arithmetic is exact).
+"""The port's CUDA kernels (the field kernels and the NTT's reduce kernel)
+against their plain PyTorch versions, on the card (exact equality: field
+arithmetic is exact).
 
 Skips without a CUDA device.  On a machine with one:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
@@ -78,3 +79,45 @@ def test_wrapper_rejects_bad_inputs(cuda):
         mm.mont_mul(a, a, FQ)
     with pytest.raises(ValueError):
         mm.mod_add(a, a.cpu(), FR)
+
+
+def test_ntt_reduce_matches_plain(cuda):
+    """The reduce kernel on the real first-level planes of a 4096-point
+    transform, and on planes at the kernel's bound (every plane 2^29 − 1)."""
+    from simpleworks_tpu_torch.ops import ntt
+
+    x = rand_field(FR, 4096, 7, cuda)
+    planes = ntt.get_ntt(4096, cuda).partial_planes(x)
+    planes[:, :3] = (1 << 29) - 1
+    before = dict(mm.LAUNCHES)
+    got = ntt.ntt_reduce(planes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ntt.ntt_reduce_plain(planes))
+    assert mm.LAUNCHES["ntt_reduce"] == before["ntt_reduce"] + 1
+    # a view with a wider row stride is read through its stride
+    wide = torch.cat([planes, planes], dim=1)[:, 4096:]
+    assert torch.equal(ntt.ntt_reduce(wide), got)
+
+
+def test_ntt_matches_host_oracle(cuda):
+    from simpleworks_tpu_torch.fields import dvec
+    from simpleworks_tpu_torch.fields.bls12_377 import fr_root_of_unity
+    from simpleworks_tpu_torch.poly.domain import ntt_host
+
+    for n in (1, 8, 512):
+        x = rand_field(FR, n, 8, cuda)
+        y = dvec.fft(x, n)
+        assert dvec.to_ints(y) == ntt_host(dvec.to_ints(x), fr_root_of_unity(n))
+        assert torch.equal(dvec.ifft(y, n), x)
+
+
+def test_default_device_is_the_card(cuda):
+    from simpleworks_tpu_torch.device import default_device, resolve
+    from simpleworks_tpu_torch.fields import dvec
+
+    assert default_device().type == "cuda"
+    x = dvec.from_ints([1, 2, 3])
+    assert x.device.type == "cuda"
+    # "cuda" without an index resolves to the card a tensor reports
+    assert resolve(cuda) == resolve(None) == x.device
+    assert dvec.to_ints(dvec.ifft(dvec.fft(x[:, :2], 2), 2)) == [1, 2]

@@ -13,9 +13,10 @@ from simpleworks_tpu_torch.fields import dvec
 from simpleworks_tpu_torch.fields.bls12_377 import FR_MODULUS as P
 from simpleworks_tpu_torch.fields.device import from_reference_limbs, mont_scalar
 
+CPU = torch.device("cpu")
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
-N = 9
+N = 3  # odd: the halving tree carries a lane
 rng = np.random.default_rng(21)
 
 
@@ -27,7 +28,7 @@ def rand_limbs(n):
 
 
 def same(port_t, ref_arr):
-    return torch.equal(port_t, from_reference_limbs(np.asarray(ref_arr)))
+    return torch.equal(port_t, from_reference_limbs(np.asarray(ref_arr), CPU))
 
 
 @pytest.mark.parametrize("op", ["mul", "add", "sub"])
@@ -37,7 +38,7 @@ def test_elementwise_matches_reference(op):
     a, b = rand_limbs(N), rand_limbs(N)
     a[:, 0] = 0
     b[:, 1] = a[:, 1]  # a − a and a + a lanes
-    got = getattr(dvec, op)(from_reference_limbs(a), from_reference_limbs(b))
+    got = getattr(dvec, op)(from_reference_limbs(a, CPU), from_reference_limbs(b, CPU))
     assert same(got, getattr(ref, op)(jnp.asarray(a), jnp.asarray(b)))
 
 
@@ -46,11 +47,11 @@ def test_scale_rsub_pow_inv_match_reference():
 
     a = rand_limbs(N)
     a[:, 0] = 0  # inv keeps zero at zero
-    ta, ja = from_reference_limbs(a), jnp.asarray(a)
+    ta, ja = from_reference_limbs(a, CPU), jnp.asarray(a)
     s = 123456789
-    assert torch.equal(mont_scalar(s), from_reference_limbs(ref.mont_scalar_np(s)))
-    assert same(dvec.scale(ta, mont_scalar(s)), ref.scale(ja, ref.mont_scalar_np(s)))
-    assert same(dvec.rsub_scalar(ta, mont_scalar(s)), ref.rsub_scalar(ja, ref.mont_scalar_np(s)))
+    assert torch.equal(mont_scalar(s, device=CPU), from_reference_limbs(ref.mont_scalar_np(s), CPU))
+    assert same(dvec.scale(ta, mont_scalar(s, device=CPU)), ref.scale(ja, ref.mont_scalar_np(s)))
+    assert same(dvec.rsub_scalar(ta, mont_scalar(s, device=CPU)), ref.rsub_scalar(ja, ref.mont_scalar_np(s)))
     # a short exponent against the reference; the reference's CPU inverse
     # unrolls 254 Montgomery multiplies into one XLA program (minutes to
     # compile), so the Fermat inverse is held against the host field
@@ -65,14 +66,14 @@ def test_sum_evaluate_powers_match_reference():
     import jax.numpy as jnp
 
     a = rand_limbs(N)
-    ta, ja = from_reference_limbs(a), jnp.asarray(a)
+    ta, ja = from_reference_limbs(a, CPU), jnp.asarray(a)
     assert dvec.limb_sums_to_int(dvec.sum_limbs_raw(ta)) == ref.limb_sums_to_int(
         np.asarray(ref.sum_limbs_raw(ja)))
     assert same(dvec.sum_reduce(ta), ref.sum_reduce(ja))
     z = 987654321
     assert same(dvec.evaluate(ta, z), ref.evaluate(ja, z))
     assert dvec.scalar_to_int(dvec.evaluate(ta, z)) == ref.scalar_to_int(ref.evaluate(ja, z))
-    assert same(dvec.powers_vec(31337, N, "cpu"), ref.powers_vec(31337, N))
+    assert same(dvec.powers_vec(31337, N, CPU), ref.powers_vec(31337, N))
 
 
 @pytest.mark.parametrize("n", [1, N])
@@ -81,11 +82,11 @@ def test_divide_by_linear_matches_reference(n):
 
     a = rand_limbs(n)
     z = 424242
-    q, r = dvec.divide_by_linear(from_reference_limbs(a), z)
+    q, r = dvec.divide_by_linear(from_reference_limbs(a, CPU), z)
     qr, rr = ref.divide_by_linear(jnp.asarray(a), ref.mont_scalar_np(z), z_int=z)
     assert same(q, qr)
     assert same(r, rr)
-    vals = dvec.to_ints(from_reference_limbs(a))
+    vals = dvec.to_ints(from_reference_limbs(a, CPU))
     assert dvec.scalar_to_int(r) == sum(v * pow(z, i, P) for i, v in enumerate(vals)) % P
 
 
@@ -94,7 +95,7 @@ def test_divide_by_linear_long_scan():
     suffix scan; held against host synthetic division."""
     vals = [int.from_bytes(rng.bytes(32), "little") % P for _ in range(37)]
     z = 31337
-    q, r = dvec.divide_by_linear(dvec.from_ints(vals, "cpu"), z)
+    q, r = dvec.divide_by_linear(dvec.from_ints(vals, CPU), z)
     quot, carry = [0] * 36, 0
     for i in range(36, 0, -1):
         carry = (carry * z + vals[i]) % P
@@ -110,7 +111,7 @@ def test_sum_limbs_raw_large_no_overflow():
 
     n = 1 << 15
     vals = [P - 1 - i for i in range(n)]
-    t = dvec.from_ints(vals, "cpu")
+    t = dvec.from_ints(vals, CPU)
     expected = sum(vals) % P
     assert dvec.limb_sums_to_int(dvec.sum_limbs_raw(t)) == expected
     ref_arr = jnp.asarray(t.numpy().astype(np.uint32))
@@ -119,8 +120,8 @@ def test_sum_limbs_raw_large_no_overflow():
 
 def test_host_bridges_round_trip():
     vals = [0, 1, P - 1, 5, 123456789]
-    t = dvec.from_ints(vals, "cpu")
+    t = dvec.from_ints(vals, CPU)
     assert dvec.to_ints(t) == vals
     assert dvec.scalar_to_int(t[:, 2:3]) == P - 1
     assert dvec.to_ints(dvec.pad_to(t, 7)) == vals + [0, 0]
-    assert dvec.to_ints(dvec.const_vec(9, 3, "cpu")) == [9, 9, 9]
+    assert dvec.to_ints(dvec.const_vec(9, 3, CPU)) == [9, 9, 9]

@@ -18,6 +18,7 @@ from simpleworks_tpu_torch.fields.bls12_377 import FR_MODULUS as P
 from simpleworks_tpu_torch.kzg import kzg10
 from simpleworks_tpu_torch.utils.rng import test_rng
 
+CPU = torch.device("cpu")
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
 MAX_DEGREE = 1023
@@ -33,7 +34,7 @@ def rand_coeffs(n):
 
 @pytest.fixture(scope="module")
 def srs_pair():
-    return ref_kzg.setup(MAX_DEGREE, ref_test_rng()), kzg10.setup(MAX_DEGREE, test_rng())
+    return ref_kzg.setup(MAX_DEGREE, ref_test_rng()), kzg10.setup(MAX_DEGREE, test_rng(), device=CPU)
 
 
 @pytest.fixture(scope="module")
@@ -50,11 +51,11 @@ def opened(srs_pair):
             for _ in range(seed):  # distinct blinds per polynomial
                 r_rng.next_u64(), p_rng.next_u64()
             out["ref"][name] = ref_kzg.commit(ref_srs, DensePoly(coeffs), bound, hiding_rng=r_rng)
-            out["port"][name] = kzg10.commit(srs, dvec.from_ints(coeffs, "cpu"), bound,
+            out["port"][name] = kzg10.commit(srs, dvec.from_ints(coeffs, CPU), bound,
                                              hiding_rng=p_rng)
         else:
             out["ref"][name] = (ref_kzg.commit(ref_srs, DensePoly(coeffs), bound), None)
-            out["port"][name] = (kzg10.commit(srs, dvec.from_ints(coeffs, "cpu"), bound), None)
+            out["port"][name] = (kzg10.commit(srs, dvec.from_ints(coeffs, CPU), bound), None)
     point, xi = rand_coeffs(2)
     out["point"], out["xi"] = point, xi
     out["values"] = {name: DensePoly(c).evaluate(point) for name, c in out["coeffs"].items()}
@@ -64,7 +65,7 @@ def opened(srs_pair):
                    for k in POLYS]
     out["ref_open"] = ref_kzg.batch_open(ref_srs, ref_labeled, point, xi,
                                          rands=[out["ref"][k][1] for k in POLYS])
-    labeled = [(dvec.from_ints(out["coeffs"][k], "cpu"), out["port"][k][0], out["values"][k],
+    labeled = [(dvec.from_ints(out["coeffs"][k], CPU), out["port"][k][0], out["values"][k],
                 bounds[k]) for k in POLYS]
     out["port_open"] = kzg10.batch_open(srs, labeled, point, xi,
                                         rands=[out["port"][k][1] for k in POLYS])
@@ -83,7 +84,7 @@ def test_setup_matches_reference(srs_pair):
     for i in (0, 1, MAX_DEGREE):
         assert srs.power(i).serialize_compressed() == ref_srs.power(i).serialize_compressed()
     # the in-process memo hands back the same table for the same rng stream
-    assert kzg10.setup(MAX_DEGREE, test_rng()) is srs
+    assert kzg10.setup(MAX_DEGREE, test_rng(), device=CPU) is srs
 
 
 def test_srs_from_reference_round_trips(srs_pair):
@@ -91,7 +92,7 @@ def test_srs_from_reference_round_trips(srs_pair):
     carried = kzg10.srs_from_reference(
         ref_srs.powers_native, ref_srs.h.serialize_compressed(),
         ref_srs.beta_h.serialize_compressed(),
-        [g.serialize_compressed() for g in ref_srs.powers_of_gamma_g],
+        [g.serialize_compressed() for g in ref_srs.powers_of_gamma_g], device=CPU,
     )
     assert torch.equal(carried.powers_xy, srs.powers_xy)
     assert carried.h == srs.h and carried.beta_h == srs.beta_h
@@ -99,7 +100,7 @@ def test_srs_from_reference_round_trips(srs_pair):
     jacobian = ref_srs.powers_native.copy()
     jacobian[1, 12:18] = jacobian[1, :6]  # a row with Z != 1
     with pytest.raises(ValueError):
-        kzg10.srs_from_reference(jacobian, b"", b"", [])
+        kzg10.srs_from_reference(jacobian, b"", b"", [], device=CPU)
 
 
 @pytest.mark.parametrize("name", list(POLYS))
@@ -142,12 +143,25 @@ def test_batch_check_accepts_and_rejects(srs_pair, opened):
 def test_commit_checks_true_degree(srs_pair):
     ref_srs, srs = srs_pair
     coeffs = rand_coeffs(16)
-    wide = dvec.pad_to(dvec.from_ints(coeffs, "cpu"), MAX_DEGREE + 9)  # zero tail past the SRS
+    wide = dvec.pad_to(dvec.from_ints(coeffs, CPU), MAX_DEGREE + 9)  # zero tail past the SRS
     assert kzg10.commit(srs, wide).serialize() == \
         ref_kzg.commit(ref_srs, DensePoly(coeffs)).serialize()
-    too_long = dvec.from_ints([0] * (MAX_DEGREE + 1) + [1], "cpu")
+    too_long = dvec.from_ints([0] * (MAX_DEGREE + 1) + [1], CPU)
     with pytest.raises(SimpleworksError):
         kzg10.commit(srs, too_long)
     with pytest.raises(SimpleworksError):
         kzg10.commit(srs, wide, degree_bound=14)
-    assert kzg10.commit(srs, dvec.zeros(5, "cpu")).comm.is_identity()
+    assert kzg10.commit(srs, dvec.zeros(5, CPU)).comm.is_identity()
+
+
+def test_commit_through_the_tensor_msm(srs_pair, opened, monkeypatch):
+    """CPU tensors this narrow take the host Pippenger in ``commit``; the
+    tensor MSM (the card's route) gives the same commitment and shifted
+    commitment."""
+    _, srs = srs_pair
+    coeffs = opened["coeffs"]["bounded"]
+    monkeypatch.setattr(kzg10, "HOST_MSM_MAX_WIDTH", 0)
+    comm = kzg10.commit(srs, dvec.from_ints(coeffs, CPU), POLYS["bounded"][1])
+    monkeypatch.undo()
+    assert comm.serialize() == kzg10.commit(srs, dvec.from_ints(coeffs, CPU),
+                                            POLYS["bounded"][1]).serialize()

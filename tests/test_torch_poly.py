@@ -1,0 +1,124 @@
+"""The port's FrVec, Radix2Domain and DensePoly (simpleworks_tpu_torch.fields.frvec,
+poly.domain, poly.dense) held against the JAX package's host twins on the
+CPU, tolerance 0, with ``FrVec.spmv`` on repeated outputs."""
+
+import numpy as np
+import pytest
+import torch
+
+from simpleworks_tpu.fields import dvec as ref_dvec
+from simpleworks_tpu.fields.frvec import FrVec as RefFrVec
+from simpleworks_tpu.poly.dense import DensePoly as RefPoly
+from simpleworks_tpu.poly.domain import Radix2Domain as RefDomain
+from simpleworks_tpu_torch.fields import dvec
+from simpleworks_tpu_torch.fields.bls12_377 import FR_MODULUS as P
+from simpleworks_tpu_torch.fields.frvec import FrVec, SpmvPlan
+from simpleworks_tpu_torch.poly.dense import DensePoly
+from simpleworks_tpu_torch.poly.domain import Radix2Domain
+
+CPU = torch.device("cpu")
+torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
+
+rng = np.random.default_rng(47)
+
+
+def rand_ints(n):
+    return [int.from_bytes(rng.bytes(32), "little") % P for _ in range(n)]
+
+
+def port(vals):
+    return FrVec.from_ints(vals, CPU)
+
+
+def test_frvec_ops_match_reference():
+    a, b = rand_ints(12), rand_ints(12)
+    a[0] = 0  # the inverse keeps zero at zero
+    pa, pb, ra, rb = port(a), port(b), RefFrVec.from_ints(a), RefFrVec.from_ints(b)
+    for got, ref in (
+        (pa + pb, ra + rb), (pa - pb, ra - rb), (pa * pb, ra * rb), (pa.scale(77), ra.scale(77)),
+        (pa.inv(), ra.inv()), (pa.rsub_scalar(5), ra.rsub_scalar(5)), (pa.neg(), ra.neg()),
+        (FrVec.powers(3, 9, CPU), RefFrVec.powers(3, 9)), (pa.pad_to(15), ra.pad_to(15)),
+    ):
+        assert got.to_ints() == ref.to_ints()
+    assert pa.sum() == ra.sum()
+    assert pa[3] == ra[3] and pa[-1] == ra[len(ra) - 1]
+    assert port(a[:5] + [0, 0]).nonzero_length() == 5 and FrVec.zeros(3, CPU).is_zero()
+
+
+def test_spmv_accumulates_repeated_outputs():
+    """Runs of 1, 2, 3 and 37 terms on one output (six scan steps), rows
+    out of order, and an output no term reaches."""
+    rows = [4, 0, 4, 2, 4] + [6] * 37 + [1, 2]
+    cols = list(rng.integers(0, 9, size=len(rows)))
+    coeffs, x = rand_ints(len(rows)), rand_ints(9)
+    got = FrVec.spmv(rows, cols, port(coeffs), port(x), 8)
+    ref = RefFrVec.spmv(np.asarray(rows, np.uint32), np.asarray(cols, np.uint32),
+                        RefFrVec.from_ints(coeffs), RefFrVec.from_ints(x), 8)
+    assert got.to_ints() == ref.to_ints()
+    expected = [0] * 8
+    for r, c, v in zip(rows, cols, coeffs):
+        expected[r] = (expected[r] + v * x[c]) % P
+    assert got.to_ints() == expected
+    plan = SpmvPlan(rows, cols, port(coeffs), 8)
+    assert len(plan.steps) == 6  # ⌈log2 37⌉
+    assert plan.apply(port(x)).to_ints() == expected  # a plan is reusable
+    assert SpmvPlan([], [], port([]), 3).apply(port(x)).to_ints() == [0, 0, 0]
+    with pytest.raises(ValueError):
+        SpmvPlan([8], [0], port([1]), 8)
+
+
+@pytest.mark.parametrize("n", [8, 64])
+def test_domain_transforms_match_reference(n):
+    d, rd = Radix2Domain(n), RefDomain(n)
+    coeffs = rand_ints(n - 3)
+    assert d.elements_vec(CPU).to_ints() == rd.elements_vec().to_ints()
+    assert d.elements_vec(CPU) is d.elements_vec(CPU)
+    assert d.fft_vec(port(coeffs)).to_ints() == rd.fft_vec(RefFrVec.from_ints(coeffs)).to_ints()
+    evals = rand_ints(n)
+    assert d.ifft_vec(port(evals)).to_ints() == rd.ifft_vec(RefFrVec.from_ints(evals)).to_ints()
+    assert d.fft(coeffs) == rd.fft(coeffs) and d.ifft(evals) == rd.ifft(evals)
+    shift = 7
+    assert d.coset_fft_vec(port(coeffs), shift).to_ints() == \
+        rd.coset_fft_vec(RefFrVec.from_ints(coeffs), shift).to_ints()
+    assert d.coset_ifft_vec(port(evals), shift).to_ints() == \
+        rd.coset_ifft_vec(RefFrVec.from_ints(evals), shift).to_ints()
+    assert d.evaluate_vanishing(12345) == rd.evaluate_vanishing(12345)
+
+
+def test_divide_by_vanishing_matches_reference():
+    import jax.numpy as jnp
+
+    d, rd = Radix2Domain(4), RefDomain(4)
+    for width in (3, 4, 23):
+        vals = rand_ints(width)
+        q, r = d.divide_by_vanishing_vec(port(vals))
+        rq, rr = rd.divide_by_vanishing_vec(RefFrVec.from_ints(vals))
+        assert q.to_ints() == rq.to_ints() and r.to_ints() == rr.to_ints()
+    limbs = port(vals).t
+    q, r = dvec.divide_by_vanishing(limbs, 4)
+    rq, rr = ref_dvec.divide_by_vanishing(jnp.asarray(limbs.numpy().astype(np.uint32)), 4)
+    assert np.array_equal(q.numpy(), np.asarray(rq).astype(np.int32))
+    assert np.array_equal(r.numpy(), np.asarray(rr).astype(np.int32))
+
+
+def test_lagrange_coeffs_match_reference():
+    d, rd = Radix2Domain(8), RefDomain(8)
+    for point in (98765, rd.element(3)):  # off the domain, and on it
+        assert d.lagrange_coeffs_vec(point, CPU).to_ints() == rd.lagrange_coeffs_vec(point).to_ints()
+
+
+def test_dense_poly_ops_match_reference():
+    a, b = rand_ints(6) + [0, 0], rand_ints(70)
+    pa, pb, ra, rb = DensePoly(a, CPU), DensePoly(b, CPU), RefPoly(a), RefPoly(b)
+    assert pa.degree() == ra.degree() == 5
+    for got, ref in ((pa + pb, ra + rb), (pb - pa, rb - ra), (pa.scale(9), ra.scale(9)),
+                     (pa * pa, ra * ra), (pa * pb, ra * rb),
+                     (pa.mul_by_vanishing(Radix2Domain(4)), ra.mul_by_vanishing(RefDomain(4)))):
+        assert got.coeffs == ref.coeffs
+    (q, r), (rq, rr) = pb.divide_by_linear(4242), rb.divide_by_linear(4242)
+    assert q.coeffs == rq.coeffs and r == rr
+    assert pb.evaluate(31337) == rb.evaluate(31337)
+    evals = rand_ints(8)
+    assert DensePoly.from_evals(Radix2Domain(8), port(evals)).coeffs == \
+        RefPoly.from_evals(RefDomain(8), RefFrVec.from_ints(evals)).coeffs
+    assert DensePoly.zero(CPU).is_zero() and (pa - pa).is_zero()
