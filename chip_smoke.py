@@ -15,32 +15,43 @@ printed as one JSON line, any failure raising:
    seed-made inputs with the edge values 0, 1 and p-1 mixed in, at the
    shapes the main path gives it, compared exactly (field arithmetic is
    exact), and timed;
-4. the NTT: the reduce kernel against its plain version on the real
+4. each fused G1 point add against its plain version and against the
+   composed adds over the field kernels, exactly, at the MSM's lane widths
+   [24, 32768] and [24, 155648], on seed-made points with the identities,
+   doublings and P + (-P) mixed in, timed; and 2048 lanes against the host
+   point law;
+5. the NTT: the reduce kernel against its plain version on the real
    first-level planes of a seed-made 2^20-point transform (exact), the
    round trip ifft(fft(x)) == x at 2^20, and fft against the pure-Python
    ntt_host at 2^12 (which shows the limb matmul exact on the card);
-5. the KZG path: KZG10 setup at the SRS degree of the bench's Marlin prove,
+6. the KZG path: KZG10 setup at the SRS degree of the bench's Marlin prove,
    four commits of the widths that prove commits, a batch opening and the
    batch check (True, then False with one evaluation changed), and a
    commitment held against the host MSM over the SRS points read back;
-6. the Marlin path at the bench's sizes: a square-add chain with n = 2^17
-   and m = 2^18 run through universal_setup(100k, 25k, 300k) -> index ->
-   prove (twice) -> verify (True; False with one evaluation or the public
-   input changed), with the seconds of each step, the prover's regions of
-   the warm prove, the proof size and the peak device memory;
-7. the card against the CPU: a square-add chain of 5 proved on both, equal
-   proof bytes (the CPU path is the one the tests hold against the JAX
-   package);
-8. the kernels line: each kernel's launches on the Marlin path (every one
-   must be > 0; the KZG path's own counts are in its line), its largest
-   error against the plain version, its time, the plain version's, and the
-   least time the card could take (bound_ms).
+7. the MSM path: msm_device_mont over that SRS at 2^17 and 2^20 points (the
+   bench's MSM legs) under the batch-affine accumulate and under the fused
+   mixed add ("madd"): equal group elements, and the seconds of each;
+8. the chain path: a square-add chain with one public input at n = 2^14
+   through universal_setup -> index -> prove (twice) -> verify (True; False
+   with one evaluation or the public input changed);
+9. the Marlin path: the bench's schnorr-verify circuit (n = 2^17, m = 2^18)
+   through universal_setup(100k, 25k, 300k) -> index -> prove (twice) ->
+   verify (True; False with one evaluation changed), with the seconds of
+   each step, the prover's regions of the warm prove, the proof size and
+   the peak device memory;
+10. the card against the CPU: a square-add chain of 5 proved on both, equal
+    proof bytes (the CPU path is the one the tests hold against the JAX
+    package);
+11. the kernels line: each kernel's launches on each path (the counts set to
+    0 before the path and read after it; every kernel a path runs must have
+    launched there), its largest error against the plain version, its time,
+    the plain version's, and the least time the card could take (bound_ms).
 
 The last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
 
-adds, after the kernels line, one warm prove of the Marlin path under
+adds, after the kernels line, one warm prove of the schnorr circuit under
 torch.profiler: the device's busy share of the prove and its busiest kernels.
 """
 
@@ -70,33 +81,55 @@ HOST_CHECK_WIDTH = 256
 #: (19 windows x 8192 buckets)
 FQ_LANES = 19 * 8192
 FR_LANES = 1 << 19
+#: the lane widths of the point adds: a c = 8 group at the card's target
+#: row width (msm_pippenger.target_lanes), and the c = 13 group
+G1_LANES = (32_768, FQ_LANES)
 
 #: the NTT checks: the reduce kernel and the round trip at 2^20 (the largest
 #: transform of the Marlin path, round 3's 4m), the oracle at 2^12
 NTT_LOG = 20
 ORACLE_LOG = 12
-#: the Marlin path: square-add chain x_{i+1} = x_i^2 + x_i of this many steps
-#: plus the input constraint gives 131,070 constraints, l = 2 and 131,072
-#: columns (n = 2^17) and 262,138 non-zeros in C (m = 2^18), the domains of
-#: the bench's schnorr prove, on the bench's SRS (degree 1,572,861)
-CHAIN_STEPS = 131_069
+#: the Marlin path: the bench's schnorr-verify circuit (bench.py
+#: bench_marlin_prove: 77,012 constraints, no public input beyond the
+#: constant, n = 2^17 and m = 2^18) on the bench's SRS (degree 1,572,861)
 SRS_SIZES = (100_000, 25_000, 300_000)
+MESSAGE = b"a message to sign"
+#: the chain path: square-add chain x_{i+1} = x_i^2 + x_i of this many steps
+#: plus the input constraint: 16,382 constraints, l = 2 (one public input),
+#: 16,384 columns (n = 2^14), m = 2^15, on an SRS sized to it
+CHAIN_STEPS = 16_381
+CHAIN_SRS_SIZES = (1 << 14, 1 << 14, 1 << 15)
 PUBLIC_INPUT = 3
+#: the MSM path: msm_device_mont over the KZG path's SRS at the widths of the
+#: bench's MSM legs, under both accumulate steps
+MSM_LOGS = (17, 20)
 #: the card-against-CPU pin: n = 8, m = 16 at SRS(16, 16, 32)
 PIN_STEPS = 5
 PIN_SRS_SIZES = (16, 16, 32)
 
 FIELD_SOURCE = "simpleworks_tpu_torch/csrc/field_kernels.cu"
 NTT_SOURCE = "simpleworks_tpu_torch/csrc/ntt_kernels.cu"
+G1_SOURCE = "simpleworks_tpu_torch/csrc/g1_kernels.cu"
 SOURCES = {"mont_mul": FIELD_SOURCE, "mod_add": FIELD_SOURCE, "mod_sub": FIELD_SOURCE,
-           "mont_pow": FIELD_SOURCE, "ntt_reduce": NTT_SOURCE}
+           "mont_pow": FIELD_SOURCE, "ntt_reduce": NTT_SOURCE,
+           "g1_fused_add": G1_SOURCE, "g1_fused_madd": G1_SOURCE}
 REPLACES = {
     "mont_mul": "simpleworks_tpu/ops/mont_mul_pallas.py:105",
     "mod_add": "simpleworks_tpu/ops/mont_mul_pallas.py:130",
     "mod_sub": "simpleworks_tpu/ops/mont_mul_pallas.py:154",
     "mont_pow": "simpleworks_tpu/ops/mont_mul_pallas.py:111",
     "ntt_reduce": "simpleworks_tpu/ops/ntt_mxu.py:95",
+    "g1_fused_add": "simpleworks_tpu/ops/g1_fused_pallas.py:112",
+    "g1_fused_madd": "simpleworks_tpu/ops/g1_fused_pallas.py:255",
 }
+#: the kernels that compute in the field alone (check_kernels)
+FIELD_KERNELS = ("mont_mul", "mod_add", "mod_sub", "mont_pow")
+#: Fq multiplies of one lane of each point add: the general formula, and the
+#: doubling that only the lanes needing it run
+G1_MULS = {"g1_fused_add": 16, "g1_fused_madd": 11}
+DOUBLE_MULS = 7
+#: the lane cases of the G1 point-add checks (g1_inputs)
+G1_CASES = ("general", "p_identity", "q_identity", "both_identity", "double", "opposite")
 #: H100 SXM: device memory rate (bytes/s) and streaming multiprocessors
 HBM_BYTES_PER_S = 3.35e12
 SMS = 132
@@ -163,6 +196,65 @@ def field_inputs(field, n: int, seed: int, device):
     return torch.from_numpy(limbs.astype(np.int32)).to(device)
 
 
+def g1_inputs(n: int, seed: int, device, pool: int = 16) -> dict:
+    """Seed-made operands of the G1 point adds over n lanes: p and q as
+    Jacobian planes with a random Z per lane, q also as affine planes (the
+    identity as x = y = 0).  Lanes 0..5 hold the cases of G1_CASES in order;
+    each later lane is one of them at random, "general" (two different
+    points of a seed-made pool) 99 times in 100.  Also returns the host
+    points and each lane's case."""
+    import numpy as np
+
+    from simpleworks_tpu_torch.curves.bls12_377 import G1Point
+    from simpleworks_tpu_torch.fields.bls12_377 import FQ_MODULUS as Q
+    from simpleworks_tpu_torch.fields.bls12_377 import FR_MODULUS as P
+    from simpleworks_tpu_torch.fields.device import FQ, to_mont
+
+    rng = np.random.default_rng(seed)
+    g = G1Point.generator()
+    base = [g.scalar_mul(int.from_bytes(rng.bytes(32), "little") % P).to_affine()
+            for _ in range(pool)]
+    weights = [0.99] + [0.01 / (len(G1_CASES) - 1)] * (len(G1_CASES) - 1)
+    cases = list(G1_CASES[:n]) + list(rng.choice(G1_CASES, size=max(0, n - len(G1_CASES)),
+                                                 p=weights))
+    first = rng.integers(0, pool, size=n)
+    second = (first + 1 + rng.integers(0, pool - 1, size=n)) % pool  # never the first
+    z_bytes = rng.bytes(2 * 48 * n)
+    z_at = iter(range(0, len(z_bytes), 48))
+
+    def jacobian(xy):
+        """Affine (x, y), None the identity -> a Jacobian G1Point of random Z."""
+        if xy is None:
+            return G1Point.identity()
+        at = next(z_at)
+        z = int.from_bytes(z_bytes[at : at + 48], "little") % (Q - 1) + 1
+        z2 = z * z % Q
+        return G1Point(xy[0] * z2 % Q, xy[1] * z2 * z % Q, z)
+
+    ps, qs, affine = [], [], []
+    for case, i, k in zip(cases, first, second):
+        p, q = base[i], base[k]
+        if case in ("p_identity", "both_identity"):
+            p = None
+        if case in ("q_identity", "both_identity"):
+            q = None
+        elif case == "double":
+            q = p
+        elif case == "opposite":
+            q = (p[0], (Q - p[1]) % Q)
+        ps.append(jacobian(p))
+        qs.append(jacobian(q))
+        affine.append(q or (0, 0))
+
+    def planes(pts, k):
+        return to_mont([(pt.X, pt.Y, pt.Z)[k] for pt in pts], FQ, device)
+
+    return {"p3": tuple(planes(ps, k) for k in range(3)),
+            "q3": tuple(planes(qs, k) for k in range(3)),
+            "q2": tuple(to_mont([a[k] for a in affine], FQ, device) for k in range(2)),
+            "p": ps, "q": qs, "cases": cases}
+
+
 def check_kernels(device, fr_lanes: int = FR_LANES, fq_lanes: int = FQ_LANES,
                   pow_shapes=None) -> dict:
     """Each kernel against its plain version on the same inputs: exact
@@ -172,7 +264,7 @@ def check_kernels(device, fr_lanes: int = FR_LANES, fq_lanes: int = FQ_LANES,
     from simpleworks_tpu_torch.fields.device import FQ, FR
     from simpleworks_tpu_torch.ops import mont_mul as mm
 
-    results: dict[str, list] = {name: [] for name in REPLACES if name != "ntt_reduce"}
+    results: dict[str, list] = {name: [] for name in FIELD_KERNELS}
 
     def record(name, shape, got, plain, ms, plain_ms):
         err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max()) if got.numel() else 0
@@ -204,6 +296,48 @@ def check_kernels(device, fr_lanes: int = FR_LANES, fq_lanes: int = FQ_LANES,
         for row in rows:
             if not row["equal"]:
                 raise AssertionError(f"{name} kernel disagrees with its plain version at {row['shape']}")
+    return results
+
+
+def check_g1(device, widths=G1_LANES) -> dict:
+    """Each fused point add against its plain version (exact) and against
+    the composed adds over the field kernels (a second witness), on the
+    lane cases of g1_inputs at each width, and both times."""
+    import torch
+
+    from simpleworks_tpu_torch.ops import g1_fused, g1_limb
+
+    ins = g1_inputs(max(widths), 12, device)
+    ops = {"g1_fused_add": (g1_fused.fused_add, g1_fused.fused_add_plain, g1_limb._add_composed,
+                            "q3", ("double", "both_identity")),
+           "g1_fused_madd": (g1_fused.fused_madd, g1_fused.fused_madd_plain,
+                             g1_limb._madd_composed, "q2", ("double",))}
+    results: dict[str, list] = {name: [] for name in ops}
+    resources = g1_fused.kernel_resources()
+    for width in widths:
+        p3 = tuple(a[:, :width].contiguous() for a in ins["p3"])
+        cases = ins["cases"][:width]
+        for name, (op, plain, composed, q_key, dbl_cases) in ops.items():
+            q = tuple(a[:, :width].contiguous() for a in ins[q_key])
+            got, ref, wit = op(p3, q), plain(p3, q), composed(p3, q)
+            sync(device)
+            err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                      for a, b in zip(got, ref))
+            row = {"shape": [24, width], "equal": all(map(torch.equal, got, ref)),
+                   "composed_equal": all(map(torch.equal, got, wit)), "max_abs_err": err,
+                   "double_lanes": sum(c in dbl_cases for c in cases), **resources[name],
+                   "ms": time_ms(lambda: op(p3, q), device, inner=20, queue_ahead=True),
+                   "plain_ms": time_ms(lambda: plain(p3, q), device, reps=3)}
+            if not (row["equal"] and row["composed_equal"]):
+                raise AssertionError(f"{name} kernel disagrees at [24, {width}]: {row}")
+            results[name].append(row)
+    # every lane against the host point law, at a width the host can afford
+    few = 2048
+    expected = [a.add(b) for a, b in zip(ins["p"][:few], ins["q"][:few])]
+    for name, (op, _, _, q_key, _) in ops.items():
+        out = op(tuple(a[:, :few] for a in ins["p3"]), tuple(a[:, :few] for a in ins[q_key]))
+        if g1_limb.points_from_limb_major(out) != expected:
+            raise AssertionError(f"{name} differs from the host point law")
     return results
 
 
@@ -276,10 +410,25 @@ def square_add_chain(steps: int, x: int = PUBLIC_INPUT):
     return cs
 
 
-def run_marlin(device, steps: int = CHAIN_STEPS, sizes=SRS_SIZES) -> dict:
-    """synthesis -> universal_setup -> index -> prove (twice) -> verify through
-    the port's public functions; returns the seconds of each step and what
-    the checks saw.  Raises on a wrong result."""
+def schnorr_circuit(message: bytes = MESSAGE):
+    """The circuit of the bench prove, on its draw sequence: test_rng(),
+    setup, keygen, sign, then the schnorr-verify circuit's synthesis."""
+    from simpleworks_tpu_torch.examples.schnorr_circuit import synthesize
+    from simpleworks_tpu_torch.schnorr import schnorr
+    from simpleworks_tpu_torch.utils.rng import test_rng
+
+    rng = test_rng()
+    params = schnorr.setup(rng)
+    pk, sk = schnorr.keygen(params, rng)
+    return synthesize(params, pk, message, schnorr.sign(params, sk, message, rng))
+
+
+def run_marlin(device, build=schnorr_circuit, public=(), sizes=SRS_SIZES) -> dict:
+    """synthesis (``build()``) -> universal_setup -> index -> prove (twice) ->
+    verify through the port's public functions; returns the seconds of each
+    step and what the checks saw.  Raises on a wrong result: verify must
+    accept the proof and reject it with one evaluation changed, and with the
+    public input changed where the circuit has one."""
     import dataclasses
 
     import torch
@@ -300,7 +449,8 @@ def run_marlin(device, steps: int = CHAIN_STEPS, sizes=SRS_SIZES) -> dict:
         steps_s[name] = time.perf_counter() - t0
         return out
 
-    cs = timed("synthesis_s", lambda: square_add_chain(steps))
+    public = list(public)
+    cs = timed("synthesis_s", build)
     srs = timed("setup_s", lambda: marlin.universal_setup(*sizes, marlin.generate_rand(),
                                                           device=device))
     PROVER_TIMER.reset()
@@ -320,12 +470,12 @@ def run_marlin(device, steps: int = CHAIN_STEPS, sizes=SRS_SIZES) -> dict:
     PROVER_TIMER.synchronize = False
     if serialize_proof(proof) != serialize_proof(proof_cold):
         raise AssertionError("the two proves of one circuit differ")
-    accepted = timed("verify_s", lambda: marlin.verify(vk, [PUBLIC_INPUT], proof))
+    accepted = timed("verify_s", lambda: marlin.verify(vk, public, proof))
     bad_evals = dict(proof.evaluations)
     bad_evals["w"] = (bad_evals["w"] + 1) % FR_MODULUS
     tampered = dataclasses.replace(proof, evaluations=bad_evals)
-    rejected_eval = not marlin.verify(vk, [PUBLIC_INPUT], tampered)
-    rejected_input = not marlin.verify(vk, [PUBLIC_INPUT + 1], proof)
+    rejected_eval = not marlin.verify(vk, public, tampered)
+    rejected_input = not public or not marlin.verify(vk, [public[0] + 1, *public[1:]], proof)
     if not (accepted and rejected_eval and rejected_input):
         raise AssertionError(f"verify: accepted={accepted}, rejected tampered evaluation="
                              f"{rejected_eval}, rejected changed input={rejected_input}")
@@ -333,7 +483,39 @@ def run_marlin(device, steps: int = CHAIN_STEPS, sizes=SRS_SIZES) -> dict:
             "index_regions": index_regions, "prove_warm_regions": regions,
             "proof_bytes": len(serialize_proof(proof)), "verify": accepted,
             "verify_tampered_evaluation": not rejected_eval,
-            "verify_changed_input": not rejected_input}
+            "verify_changed_input": None if not public else not rejected_input}
+
+
+def run_chain(device, steps: int = CHAIN_STEPS, sizes=CHAIN_SRS_SIZES) -> dict:
+    """The Marlin path on a square-add chain with one public input."""
+    return run_marlin(device, lambda: square_add_chain(steps), [PUBLIC_INPUT], sizes)
+
+
+def run_msm(device, logs=MSM_LOGS, max_degree: int = MAX_DEGREE) -> dict:
+    """msm_device_mont over the KZG path's SRS (its memo) on seed-made
+    coefficients of 2^log points, under the batch-affine accumulate and the
+    fused mixed add: equal group elements, and the seconds of each."""
+    from simpleworks_tpu_torch.kzg import kzg10
+    from simpleworks_tpu_torch.ops.msm_pippenger import msm_device_mont
+    from simpleworks_tpu_torch.utils.rng import test_rng
+
+    srs = kzg10.setup(max_degree, test_rng(), device=device)
+    out = {}
+    for log in logs:
+        coeffs = random_poly(1 << log, 100 + log, device)
+        results, seconds = {}, {}
+        for accum in ("affine", "madd"):
+            msm_device_mont(srs.powers_xy, coeffs, accum=accum)  # warm: allocator, caches
+            sync(device)
+            t0 = time.perf_counter()
+            results[accum] = msm_device_mont(srs.powers_xy, coeffs, accum=accum)
+            sync(device)
+            seconds[accum] = time.perf_counter() - t0
+        if results["affine"] != results["madd"]:
+            raise AssertionError(f"the affine and madd MSMs differ at 2^{log}")
+        out[f"2^{log}"] = {"affine_s": seconds["affine"], "madd_s": seconds["madd"],
+                           "equal": True}
+    return out
 
 
 def run_pin(device, steps: int = PIN_STEPS, sizes=PIN_SRS_SIZES) -> dict:
@@ -358,7 +540,7 @@ def run_pin(device, steps: int = PIN_STEPS, sizes=PIN_SRS_SIZES) -> dict:
             "equal_bytes": True}
 
 
-def profile_prove(device, steps: int = CHAIN_STEPS, sizes=SRS_SIZES, top: int = 15) -> dict:
+def profile_prove(device, sizes=SRS_SIZES, top: int = 15) -> dict:
     """One warm prove of the Marlin path under torch.profiler: the device's
     busy time (the sum of its kernel, copy and fill intervals, which one
     stream runs one at a time) against the prove's wall time, the busiest
@@ -370,7 +552,7 @@ def profile_prove(device, steps: int = CHAIN_STEPS, sizes=SRS_SIZES, top: int = 
 
     from simpleworks_tpu_torch import marlin
 
-    cs = square_add_chain(steps)
+    cs = schnorr_circuit()
     srs = marlin.universal_setup(*sizes, marlin.generate_rand(), device=device)
     pk, _ = marlin.index(srs, cs)
     marlin.prove(pk, cs)  # cold: the transform tables are built here
@@ -398,15 +580,22 @@ def profile_prove(device, steps: int = CHAIN_STEPS, sizes=SRS_SIZES, top: int = 
             "top": [{"name": k[:80], "s": busy_us[k] / 1e6, "count": count[k]} for k in ranked]}
 
 
-def bound_ms(name: str, shape, clock_mhz: float, exponent: int | None = None) -> tuple[float, str]:
+def bound_ms(name: str, shape, clock_mhz: float, exponent: int | None = None,
+             double_lanes: int = 0) -> tuple[float, str]:
     """The least time the card could take for one call at ``shape``: the
     larger of the bytes moved (each input read once, each output written
     once) over the memory rate and the 32-bit multiply-adds over
     SMS x IMAD_PER_SM_CLOCK x the SM clock.  A 32 x 32 -> 64-bit product
-    counts as one multiply-add."""
+    counts as one multiply-add; a point add counts its Fq multiplies (the
+    doubling on ``double_lanes`` lanes only), not its adds and selects."""
     rows, lanes = shape
     imad_per_s = SMS * IMAD_PER_SM_CLOCK * clock_mhz * 1e6
-    if name == "ntt_reduce":
+    if name in G1_MULS:
+        words = rows // 2
+        planes = 9 if name == "g1_fused_add" else 8  # 6 or 5 in, 3 out
+        nbytes = planes * rows * 4 * lanes
+        ops = 2 * words * words * (lanes * G1_MULS[name] + double_lanes * DOUBLE_MULS)
+    elif name == "ntt_reduce":
         nbytes = (rows + 16) * 4 * lanes
         ops = lanes * (17 * 16 + 17)  # 17 REDC rounds of 16 limb products, plus m
     else:
@@ -549,6 +738,9 @@ def main(argv: list[str]) -> int:
 
     checks = check_kernels(device)
     emit({"kernel_checks": checks})
+    g1_checks = check_g1(device)
+    emit({"g1_checks": g1_checks})
+    checks.update(g1_checks)
     ntt_checks = check_ntt(device)
     emit({"ntt_checks": ntt_checks})
     checks["ntt_reduce"] = [ntt_checks["reduce"]]
@@ -569,32 +761,43 @@ def main(argv: list[str]) -> int:
             raise AssertionError(f"kernels never launched on the {label} path: {idle}")
         return result
 
-    kzg = drive("KZG", ["mont_mul", "mod_add", "mod_sub", "mont_pow"], lambda: run_slice(device))
-    emit({"kzg_slice": kzg})
+    field_and_add = [*FIELD_KERNELS, "g1_fused_add"]
+    prover = [*FIELD_KERNELS, "ntt_reduce", "g1_fused_add"]
+    paths = {}
+    paths["kzg"] = drive("KZG", field_and_add, lambda: run_slice(device))
+    emit({"kzg_slice": paths["kzg"]})
+    paths["msm"] = drive("MSM", ["g1_fused_madd", "g1_fused_add"], lambda: run_msm(device))
+    emit({"msm": paths["msm"]})
     kzg10._SRS_MEMO.clear()  # the Marlin path's setup is timed, not read from the memo
-    marlin_run = drive("Marlin", list(REPLACES), lambda: run_marlin(device))
-    emit({"marlin": marlin_run})
+    paths["chain"] = drive("chain", prover, lambda: run_chain(device))
+    emit({"chain": paths["chain"]})
+    paths["marlin"] = drive("Marlin", prover, lambda: run_marlin(device))
+    emit({"marlin": paths["marlin"]})
     emit({"pin": run_pin(device)})
 
     from simpleworks_tpu_torch.fields.device import FQ, FR
 
     kernels = []
     for name, rows in checks.items():
-        main_row = rows[-1]  # the Fq shape for the binary ops, the Fr pow
+        main_row = rows[-1]  # the Fq shape for the binary ops and point adds, the Fr pow
         for row in rows:
             # the pow's exponent is the Fermat one of the row's field
             exponent = (FR if row["shape"][0] == 16 else FQ).p - 2 if name == "mont_pow" else None
-            row["bound_ms"], row["bound_by"] = bound_ms(name, row["shape"], clock_mhz, exponent)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                name, row["shape"], clock_mhz, exponent, row.get("double_lanes", 0))
+        by_path = {label: run["launches"][name] for label, run in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": marlin_run["launches"][name],
+            "launches": sum(by_path.values()),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"], "library_ms": None,
             "shape": main_row["shape"], "equal": all(r["equal"] for r in rows),
-            "kzg_launches": kzg["launches"][name],
+            "launches_by_path": by_path,
             "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")} for r in rows],
         })
+    if any(k["launches"] <= 0 for k in kernels):
+        raise AssertionError("a kernel launched on no path")
     emit({"kernels": kernels})
     if argv == ["--profile"]:
         emit({"profile": profile_prove(device)})

@@ -6,21 +6,11 @@
 //   swt_mod_sub   <- _mod_sub_kernel, built by make_mod_addsub
 //   swt_mont_pow  <- _mont_pow_kernel, built by make_mont_pow
 //
-// Layout at the interface is the JAX package's: a field vector is limb-major
-// [L, B] int32 holding 16-bit limbs (L = 16 for Fr, L = 24 for Fq, so
-// R = 2^(16 L) = 2^256 or 2^384).  Element j of row i sits at
-// ptr[i * row_stride + j * col_stride], so sliced views (a row stride wider
-// than B) and broadcast columns (col_stride 0) need no copy.  The output is
-// always a dense [L, B] array.
-//
-// One thread per element.  A thread loads its limb column (neighbouring
-// threads read neighbouring lanes of each limb row, so loads coalesce when
-// col_stride is 1), packs pairs of 16-bit limbs into N = L / 2 32-bit words
-// (R is unchanged), computes, and unpacks.  Montgomery multiplication is CIOS
-// with 64-bit products and n0 = -p^-1 mod 2^32, then one conditional
-// subtraction: the value before that subtraction is (a b + m p) / R with the
-// unique m in [0, R), the same as the Pallas kernel's 16-bit REDC, so the
-// two agree bit for bit.  The ragged edge is masked; there is no tile padding.
+// The layout, the limb packing and the arithmetic are in field_arith.cuh,
+// which the fused G1 point adds (g1_kernels.cu) share.  One thread per
+// element; neighbouring threads read neighbouring lanes of each limb row, so
+// loads coalesce when col_stride is 1.  The ragged edge is masked; there is
+// no tile padding.
 //
 // What bounds them on the card: mont_mul over a wide batch is bound by
 // integer multiply-add throughput (2 N^2 64-bit products per multiply: 128
@@ -36,101 +26,29 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "field_arith.cuh"
+
 namespace {
+
+using swt::grid_for;
+using swt::kMaxWords;
+using swt::load;
+using swt::make_modulus;
+using swt::Modulus;
+using swt::store;
+using swt::View;
 
 // Small blocks spread a narrow batch over many SMs: the batch inversion's
 // Fermat root runs on a few thousand lanes, which 256-thread blocks would
 // put on a handful of the card's 132 SMs, bound by their multiply rate.
 constexpr int kThreads = 64;
 constexpr int kPowThreads = 32;
-constexpr int kMaxWords = 12;  // Fq: 384 bits
-
-template <int N>
-struct Modulus {
-  uint32_t p[N];
-  uint32_t n0;  // -p^-1 mod 2^32
-  uint32_t one[N];  // R mod p (Montgomery one)
-};
 
 template <int N>
 struct Exponent {
   uint32_t w[kMaxWords];  // little-endian 32-bit words
   int n_bits;             // bit length; bits are walked MSB first
 };
-
-struct View {
-  const int32_t* ptr;
-  int64_t row_stride;
-  int64_t col_stride;
-};
-
-template <int N>
-__device__ __forceinline__ void load(uint32_t (&x)[N], const View& v, int64_t j) {
-  const int32_t* base = v.ptr + j * v.col_stride;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    uint32_t lo = static_cast<uint32_t>(base[(2 * k) * v.row_stride]) & 0xFFFFu;
-    uint32_t hi = static_cast<uint32_t>(base[(2 * k + 1) * v.row_stride]) & 0xFFFFu;
-    x[k] = lo | (hi << 16);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store(int32_t* out, int64_t B, int64_t j, const uint32_t (&x)[N]) {
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    out[(2 * k) * B + j] = static_cast<int32_t>(x[k] & 0xFFFFu);
-    out[(2 * k + 1) * B + j] = static_cast<int32_t>(x[k] >> 16);
-  }
-}
-
-// r = a * b * R^-1 mod p for a, b < p (CIOS, 32-bit words).
-template <int N>
-__device__ __forceinline__ void mont_mul(uint32_t (&r)[N], const uint32_t (&a)[N],
-                                         const uint32_t (&b)[N], const Modulus<N>& M) {
-  uint32_t t[N + 2];
-#pragma unroll
-  for (int k = 0; k < N + 2; ++k) t[k] = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      uint64_t s = static_cast<uint64_t>(a[j]) * b[i] + t[j] + c;
-      t[j] = static_cast<uint32_t>(s);
-      c = s >> 32;
-    }
-    uint64_t s = static_cast<uint64_t>(t[N]) + c;
-    t[N] = static_cast<uint32_t>(s);
-    t[N + 1] = static_cast<uint32_t>(s >> 32);
-
-    uint32_t m = t[0] * M.n0;
-    s = static_cast<uint64_t>(m) * M.p[0] + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < N; ++j) {
-      s = static_cast<uint64_t>(m) * M.p[j] + t[j] + c;
-      t[j - 1] = static_cast<uint32_t>(s);
-      c = s >> 32;
-    }
-    s = static_cast<uint64_t>(t[N]) + c;
-    t[N - 1] = static_cast<uint32_t>(s);
-    t[N] = t[N + 1] + static_cast<uint32_t>(s >> 32);
-  }
-  // V = t[N] * 2^(32N) + t[0..N-1] < 2p: subtract p when t[N] is set or
-  // the low words are >= p (no borrow).
-  uint32_t d[N];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    uint64_t s = static_cast<uint64_t>(t[k]) - M.p[k] - borrow;
-    d[k] = static_cast<uint32_t>(s);
-    borrow = static_cast<uint32_t>(s >> 63);
-  }
-  const bool use_d = (t[N] != 0) || (borrow == 0);
-#pragma unroll
-  for (int k = 0; k < N; ++k) r[k] = use_d ? d[k] : t[k];
-}
 
 template <int N>
 __global__ void mont_mul_kernel(View a, View b, int32_t* out, int64_t B, Modulus<N> M) {
@@ -139,7 +57,7 @@ __global__ void mont_mul_kernel(View a, View b, int32_t* out, int64_t B, Modulus
   uint32_t x[N], y[N], r[N];
   load<N>(x, a, j);
   load<N>(y, b, j);
-  mont_mul<N>(r, x, y, M);
+  swt::mont_mul<N>(r, x, y, M);
   store<N>(out, B, j, r);
 }
 
@@ -147,27 +65,10 @@ template <int N>
 __global__ void mod_add_kernel(View a, View b, int32_t* out, int64_t B, Modulus<N> M) {
   const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (j >= B) return;
-  uint32_t x[N], y[N], s[N], d[N];
+  uint32_t x[N], y[N], s[N];
   load<N>(x, a, j);
   load<N>(y, b, j);
-  uint32_t carry = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    uint64_t v = static_cast<uint64_t>(x[k]) + y[k] + carry;
-    s[k] = static_cast<uint32_t>(v);
-    carry = static_cast<uint32_t>(v >> 32);
-  }
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    uint64_t v = static_cast<uint64_t>(s[k]) - M.p[k] - borrow;
-    d[k] = static_cast<uint32_t>(v);
-    borrow = static_cast<uint32_t>(v >> 63);
-  }
-  // a + b < 2p: subtract p when the sum carried out or is >= p
-  const bool use_d = (carry != 0) || (borrow == 0);
-#pragma unroll
-  for (int k = 0; k < N; ++k) s[k] = use_d ? d[k] : s[k];
+  swt::mod_add<N>(s, x, y, M);
   store<N>(out, B, j, s);
 }
 
@@ -178,22 +79,7 @@ __global__ void mod_sub_kernel(View a, View b, int32_t* out, int64_t B, Modulus<
   uint32_t x[N], y[N], d[N];
   load<N>(x, a, j);
   load<N>(y, b, j);
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    uint64_t v = static_cast<uint64_t>(x[k]) - y[k] - borrow;
-    d[k] = static_cast<uint32_t>(v);
-    borrow = static_cast<uint32_t>(v >> 63);
-  }
-  if (borrow) {  // a - b wrapped: add p back (mod 2^(32N))
-    uint32_t carry = 0;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      uint64_t v = static_cast<uint64_t>(d[k]) + M.p[k] + carry;
-      d[k] = static_cast<uint32_t>(v);
-      carry = static_cast<uint32_t>(v >> 32);
-    }
-  }
+  swt::mod_sub<N>(d, x, y, M);
   store<N>(out, B, j, d);
 }
 
@@ -208,30 +94,15 @@ __global__ void mont_pow_kernel(View a, int32_t* out, int64_t B, Modulus<N> M, E
 #pragma unroll
   for (int k = 0; k < N; ++k) acc[k] = M.one[k];
   for (int i = E.n_bits - 1; i >= 0; --i) {
-    mont_mul<N>(tmp, acc, acc, M);
+    swt::mont_mul<N>(tmp, acc, acc, M);
     if ((E.w[i >> 5] >> (i & 31)) & 1u) {
-      mont_mul<N>(acc, tmp, x, M);
+      swt::mont_mul<N>(acc, tmp, x, M);
     } else {
 #pragma unroll
       for (int k = 0; k < N; ++k) acc[k] = tmp[k];
     }
   }
   store<N>(out, B, j, acc);
-}
-
-template <int N>
-Modulus<N> make_modulus(const uint32_t* p, uint32_t n0, const uint32_t* one) {
-  Modulus<N> M;
-  for (int k = 0; k < N; ++k) {
-    M.p[k] = p[k];
-    M.one[k] = one[k];
-  }
-  M.n0 = n0;
-  return M;
-}
-
-inline unsigned grid_for(int64_t B, int threads) {
-  return static_cast<unsigned>((B + threads - 1) / threads);
 }
 
 enum class Op { kMul, kAdd, kSub };

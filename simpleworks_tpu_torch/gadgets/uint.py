@@ -1,0 +1,398 @@
+"""Unsigned-integer circuit gadgets (UInt8/16/32/64/128 in one class).
+
+Replaces the reference's per-width gadget files (``src/gadgets/uint8.rs``,
+``uint16.rs``, ``uint32.rs``, ``uint64.rs``, ``uint128.rs``) and the parts of
+``ark_r1cs_std::uint*`` they build on, with one width-parametric class.
+
+Semantics preserved exactly (SURVEY.md §3.5 caveats):
+
+* ``add``: ripple-carry, wrapping mod 2^w (reference uint8.rs:236-271; the
+  reference's addmany-based widths have identical value semantics).
+* ``sub``: complement-add-complement with a **native** underflow check that
+  raises (reference uint8.rs:273-299 ``ensure!``).
+* ``div``: long division with a native divide-by-zero check and a per-step
+  native compare (reference uint8.rs:301-330).
+* ``compare``: the comparison is computed natively out-of-circuit and
+  allocated as an **unconstrained witness** — a soundness gap present in the
+  reference (``src/gadgets/helpers.rs:51-76``) that we replicate for parity
+  and document rather than silently fix.
+* shift/rotate: witness-allocate the shifted value, then constrain bit
+  equalities on big-endian bit order (reference uint8.rs:102-233).
+
+Port of ``simpleworks_tpu/gadgets/uint.py`` (pure Python, copied so the port
+imports nothing of the JAX package).
+"""
+
+from __future__ import annotations
+
+from ..r1cs.constraint_system import ConstraintSystem, ONE
+from .boolean import Boolean
+
+
+class Comparison:
+    GREATER_THAN = "gt"
+    GREATER_THAN_OR_EQUAL = "gte"
+    LESS_THAN_OR_EQUAL = "lte"
+    LESS_THAN = "lt"
+
+    @staticmethod
+    def instruction(cmp: str) -> str:
+        """Aleo opcode names (reference src/gadgets/helpers.rs:20-29)."""
+        return cmp
+
+
+def compare_native(left, right, comparison: str) -> bool:
+    if comparison == Comparison.GREATER_THAN:
+        return left > right
+    if comparison == Comparison.GREATER_THAN_OR_EQUAL:
+        return left >= right
+    if comparison == Comparison.LESS_THAN_OR_EQUAL:
+        return left <= right
+    if comparison == Comparison.LESS_THAN:
+        return left < right
+    raise ValueError(f"unknown comparison {comparison}")
+
+
+def compare_ord(cs: ConstraintSystem, left_value, right_value, comparison: str) -> Boolean:
+    """Replica of reference compare_ord (src/gadgets/helpers.rs:51-76):
+    native comparison allocated as an unconstrained witness boolean,
+    routed through a conditional select of true/false witnesses."""
+    result = compare_native(left_value, right_value, comparison)
+    true_witness = Boolean.new_witness(cs, True)
+    false_witness = Boolean.new_witness(cs, False)
+    cond = Boolean.new_witness(cs, result)
+    return Boolean.conditionally_select(cond, true_witness, false_witness)
+
+
+class UIntGadget:
+    """Width-parametric unsigned integer gadget: LE bit vector + value."""
+
+    __slots__ = ("cs", "width", "bits", "_value")
+
+    def __init__(self, cs, width: int, bits: list[Boolean], value: int):
+        assert len(bits) == width
+        self.cs = cs
+        self.width = width
+        self.bits = bits  # little-endian
+        self._value = value & ((1 << width) - 1)
+
+    # -- constructors ------------------------------------------------------
+
+    @staticmethod
+    def constant(cs, width: int, value: int) -> "UIntGadget":
+        value &= (1 << width) - 1
+        bits = [Boolean.constant((value >> i) & 1 == 1, cs) for i in range(width)]
+        return UIntGadget(cs, width, bits, value)
+
+    @staticmethod
+    def _alloc(cs: ConstraintSystem, width: int, value: int, mode: str) -> "UIntGadget":
+        value &= (1 << width) - 1
+        maker = Boolean.new_witness if mode == "witness" else Boolean.new_input
+        bits = [maker(cs, (value >> i) & 1 == 1) for i in range(width)]
+        return UIntGadget(cs, width, bits, value)
+
+    @staticmethod
+    def new_witness(cs, width: int, value: int) -> "UIntGadget":
+        return UIntGadget._alloc(cs, width, value, "witness")
+
+    @staticmethod
+    def new_input(cs, width: int, value: int) -> "UIntGadget":
+        """Allocates one public-input field element per bit (0/1), matching
+        the reference public-input layout (e.g. [root, leaf bits] in
+        src/merkle_tree/simple_merkle_tree.rs:129-143)."""
+        return UIntGadget._alloc(cs, width, value, "input")
+
+    @staticmethod
+    def new_input_vec(cs: ConstraintSystem, data: bytes) -> list["UIntGadget"]:
+        """ark ``UInt8::new_input_vec``: pack bytes LE into field-element
+        public inputs (CAPACITY/8 = 31 bytes each for Fr), then constrain a
+        byte-wise witness decomposition against them."""
+        from .field_var import FieldVar
+
+        capacity_bytes = (cs.field.PARAMS.modulus_bits - 1) // 8
+        out: list[UIntGadget] = []
+        for off in range(0, len(data), capacity_bytes):
+            chunk = data[off : off + capacity_bytes]
+            fe = int.from_bytes(chunk, "little") % cs.field.PARAMS.modulus
+            fv = FieldVar.new_input(cs, fe)
+            bits = fv.to_bits_le(8 * len(chunk))
+            for i, byte in enumerate(chunk):
+                out.append(UIntGadget(cs, 8, bits[8 * i : 8 * i + 8], byte))
+        return out
+
+    @staticmethod
+    def from_bits_le(width: int, bits: list[Boolean]) -> "UIntGadget":
+        assert len(bits) == width
+        value = 0
+        for i, b in enumerate(bits):
+            if b.value():
+                value |= 1 << i
+        cs = next((b.cs for b in bits if b.cs is not None), None)
+        return UIntGadget(cs, width, list(bits), value)
+
+    @staticmethod
+    def from_bytes_le(width: int, bytes_gadgets: list["UIntGadget"]) -> "UIntGadget":
+        """Assemble from UInt8s, LE (reference src/gadgets/uint16.rs:38-50)."""
+        bits: list[Boolean] = []
+        for b in bytes_gadgets:
+            bits.extend(b.bits)
+        bits = bits[:width]
+        while len(bits) < width:
+            bits.append(Boolean.constant(False))
+        return UIntGadget.from_bits_le(width, bits)
+
+    @staticmethod
+    def from_bytes_be(width: int, bytes_gadgets: list["UIntGadget"]) -> "UIntGadget":
+        return UIntGadget.from_bytes_le(width, list(reversed(bytes_gadgets)))
+
+    # -- introspection --------------------------------------------------------
+
+    def value(self) -> int:
+        return self._value
+
+    def to_bits_le(self) -> list[Boolean]:
+        return list(self.bits)
+
+    def to_bits_be(self) -> list[Boolean]:
+        return list(reversed(self.bits))
+
+    def to_bytes(self) -> list["UIntGadget"]:
+        """LE byte gadgets."""
+        assert self.width % 8 == 0
+        return [
+            UIntGadget.from_bits_le(8, self.bits[8 * i : 8 * i + 8])
+            for i in range(self.width // 8)
+        ]
+
+    def is_witness(self) -> bool:
+        """reference src/gadgets/traits.rs:12-33 (first BE bit of first byte)."""
+        return self.to_bytes()[0].to_bits_be()[0].is_witness()
+
+    def to_field_elements(self) -> list[int]:
+        """LE bits as 0/1 field ints (reference uint8.rs:17-31)."""
+        return [1 if b.value() else 0 for b in self.bits]
+
+    # -- bitwise (reference zip_bits_and_apply) ---------------------------------
+
+    def _zip(self, other: "UIntGadget", fn) -> "UIntGadget":
+        assert self.width == other.width
+        bits = [fn(a, b) for a, b in zip(self.bits, other.bits)]
+        return UIntGadget.from_bits_le(self.width, bits)
+
+    def and_(self, other):
+        return self._zip(other, lambda a, b: a.and_(b))
+
+    def or_(self, other):
+        return self._zip(other, lambda a, b: a.or_(b))
+
+    def xor(self, other):
+        return self._zip(other, lambda a, b: a.xor(b))
+
+    def nand(self, other):
+        return self._zip(other, lambda a, b: a.and_(b).not_())
+
+    def nor(self, other):
+        return self._zip(other, lambda a, b: a.or_(b).not_())
+
+    def not_(self):
+        return UIntGadget.from_bits_le(self.width, [b.not_() for b in self.bits])
+
+    # -- rotates / shifts (BE bit order, reference uint8.rs:102-233) -------------
+
+    def rotate_left(self, positions: int, cs: ConstraintSystem) -> "UIntGadget":
+        w = self.width
+        be = self.to_bits_be()
+        k = positions % w
+        rotated = be[k:] + be[:k]
+        for i in range(w):
+            a = be[(i + positions) % w]
+            b = rotated[i]
+            cs.enforce_constraint(cs.lc(), cs.lc(), a.lc() - b.lc())
+        le = list(reversed(rotated))
+        return UIntGadget.from_bits_le(w, le)
+
+    def rotate_right(self, positions: int, cs: ConstraintSystem) -> "UIntGadget":
+        return self.rotate_left(self.width - (positions % self.width), cs)
+
+    def shift_left(self, positions: int, cs: ConstraintSystem) -> "UIntGadget":
+        w = self.width
+        shifted_val = 0 if positions >= w else (self._value << positions) & ((1 << w) - 1)
+        shifted = UIntGadget.new_witness(cs, w, shifted_val)
+        shifted_be = shifted.to_bits_be()
+        primitive_be = self.to_bits_be()
+        if positions >= w:
+            for c in shifted_be:
+                cs.enforce_constraint(cs.lc(), cs.lc(), c.lc())
+        else:
+            # last `positions` BE bits must be zero
+            for c in shifted_be[w - positions :]:
+                cs.enforce_constraint(cs.lc(), cs.lc(), c.lc())
+            # first w-positions BE bits equal source bits skipped by `positions`
+            for b, a in zip(shifted_be[: w - positions], primitive_be[positions:]):
+                cs.enforce_constraint(cs.lc(), cs.lc(), a.lc() - b.lc())
+        return shifted
+
+    def shift_right(self, positions: int, cs: ConstraintSystem) -> "UIntGadget":
+        w = self.width
+        shifted_val = 0 if positions >= w else self._value >> positions
+        shifted = UIntGadget.new_witness(cs, w, shifted_val)
+        shifted_be = shifted.to_bits_be()
+        primitive_be = self.to_bits_be()
+        if positions >= w:
+            for c in shifted_be:
+                cs.enforce_constraint(cs.lc(), cs.lc(), c.lc())
+        else:
+            for c in shifted_be[:positions]:
+                cs.enforce_constraint(cs.lc(), cs.lc(), c.lc())
+            for b, a in zip(shifted_be[positions:], primitive_be[: w - positions]):
+                cs.enforce_constraint(cs.lc(), cs.lc(), a.lc() - b.lc())
+        return shifted
+
+    # -- arithmetic ----------------------------------------------------------------
+
+    def add(self, addend: "UIntGadget") -> "UIntGadget":
+        """Wrapping ripple-carry add (reference uint8.rs:236-271)."""
+        assert self.width == addend.width
+        sum_bits: list[Boolean] = []
+        carry = Boolean.constant(False)
+        for augend_bit, addend_bit in zip(self.bits, addend.bits):
+            sum_bits.append(carry.xor(augend_bit).xor(addend_bit))
+            carry = (carry.not_().and_(augend_bit.and_(addend_bit))).or_(
+                carry.and_(augend_bit.or_(addend_bit))
+            )
+        return UIntGadget.from_bits_le(self.width, sum_bits)
+
+    @staticmethod
+    def addmany(operands: list["UIntGadget"], cs: ConstraintSystem) -> "UIntGadget":
+        """Wrapping modular sum of several operands via one field-arithmetic
+        constraint (the ark-r1cs-std ``addmany`` approach, used by the
+        reference's uint16/32/64/128 ``add`` and the Blake2s gadget):
+        Σ operands == Σ result_bit_i·2^i + Σ carry_j·2^(w+j)."""
+        assert operands
+        w = operands[0].width
+        assert all(op.width == w for op in operands)
+        total = sum(op._value for op in operands)
+        result_val = total & ((1 << w) - 1)
+        carry_val = total >> w
+        n_carry_bits = max(1, (len(operands) - 1).bit_length())
+        result = UIntGadget.new_witness(cs, w, result_val)
+        carry_bits = [
+            Boolean.new_witness(cs, (carry_val >> j) & 1 == 1)
+            for j in range(n_carry_bits)
+        ]
+        p = cs.field.PARAMS.modulus
+        lhs = cs.lc()
+        for op in operands:
+            for i, bit in enumerate(op.bits):
+                lhs = lhs + bit.lc() * pow(2, i, p)
+        rhs = cs.lc()
+        for i, bit in enumerate(result.bits):
+            rhs = rhs + bit.lc() * pow(2, i, p)
+        for j, bit in enumerate(carry_bits):
+            rhs = rhs + bit.lc() * pow(2, w + j, p)
+        cs.enforce_constraint(lhs - rhs, cs.lc((1, ONE)), cs.lc())
+        return result
+
+    def sub(self, subtrahend: "UIntGadget") -> "UIntGadget":
+        """Complement-add-complement with native underflow check
+        (reference uint8.rs:273-299)."""
+        if self._value < subtrahend._value:
+            raise ValueError("Subtraction underflow")
+        minuend_complement = self.not_()
+        partial = minuend_complement.add(subtrahend)
+        return partial.not_()
+
+    def mul(self, multiplicand: "UIntGadget", cs: ConstraintSystem) -> "UIntGadget":
+        """Shift-and-add (reference uint8.rs:332-343); wrapping."""
+        product = UIntGadget.new_witness(cs, self.width, 0)
+        for i, multiplier_bit in enumerate(self.bits):
+            addend = multiplicand.shift_left(i, cs)
+            product = UIntGadget.conditionally_select(
+                multiplier_bit, product.add(addend), product
+            )
+        return product
+
+    def div(self, divisor: "UIntGadget", cs: ConstraintSystem) -> "UIntGadget":
+        """Long division with native checks (reference uint8.rs:301-330)."""
+        if divisor._value == 0:
+            raise ValueError("attempt to divide by zero")
+        quotient = self
+        aux = UIntGadget.new_witness(cs, self.width, 0)
+        one = UIntGadget.constant(cs, self.width, 1)
+        for dividend_bit in self.to_bits_be():
+            quotient = quotient.shift_left(1, cs)
+            aux = UIntGadget.conditionally_select(
+                dividend_bit,
+                aux.shift_left(1, cs).or_(one),
+                aux.shift_left(1, cs),
+            )
+            is_greater = compare_ord(
+                cs, divisor._value, aux._value, Comparison.GREATER_THAN
+            )
+            quotient = UIntGadget.conditionally_select(
+                is_greater, quotient, quotient.or_(one)
+            )
+            if not is_greater.value():
+                aux = aux.sub(divisor)
+        return quotient
+
+    def compare(self, other: "UIntGadget", comparison: str, cs: ConstraintSystem) -> Boolean:
+        return compare_ord(cs, self._value, other._value, comparison)
+
+    # -- select / equality -----------------------------------------------------------
+
+    @staticmethod
+    def conditionally_select(cond: Boolean, true_v: "UIntGadget", false_v: "UIntGadget") -> "UIntGadget":
+        assert true_v.width == false_v.width
+        bits = [
+            Boolean.conditionally_select(cond, t, f)
+            for t, f in zip(true_v.bits, false_v.bits)
+        ]
+        return UIntGadget.from_bits_le(true_v.width, bits)
+
+    def enforce_equal(self, other: "UIntGadget") -> None:
+        assert self.width == other.width
+        for a, b in zip(self.bits, other.bits):
+            a.enforce_equal(b)
+
+    def is_eq(self, other: "UIntGadget") -> Boolean:
+        xnors = [a.xor(b).not_() for a, b in zip(self.bits, other.bits)]
+        return Boolean.kary_nand(xnors).not_()
+
+    def __repr__(self):
+        return f"UInt{self.width}({self._value})"
+
+
+def _rotate_bytes_adjusted(bytes_vec: list[UIntGadget], positions: int, cs: ConstraintSystem) -> list[UIntGadget]:
+    """Core of the [UInt8; N] byte rotation (reference uint8.rs:360-393):
+    concat BE bits, bit-rotate left by ``total - (positions*8 % total)``,
+    reverse back to LE and re-chunk into bytes."""
+    n = len(bytes_vec)
+    total_bits = 8 * n
+    bits_le: list[Boolean] = []
+    for b in bytes_vec:
+        bits_le.extend(b.to_bits_le())
+    be_bits = list(reversed(bits_le))
+    adjusted = total_bits - ((positions * 8) % total_bits)
+    k = adjusted % total_bits
+    rotated = be_bits[k:] + be_bits[:k]
+    # The reference emits one bit-equality constraint per *byte* (a quirk of
+    # its `0..self.len()` loop) — trivially satisfied; replicated for parity.
+    for i in range(n):
+        a = be_bits[(i + adjusted) % total_bits]
+        b = rotated[i]
+        cs.enforce_constraint(cs.lc(), cs.lc(), a.lc() - b.lc())
+    le_bits = list(reversed(rotated))
+    return [UIntGadget.from_bits_le(8, le_bits[8 * i : 8 * i + 8]) for i in range(n)]
+
+
+def rotate_bytes_left(bytes_vec: list[UIntGadget], positions: int, cs: ConstraintSystem) -> list[UIntGadget]:
+    """Rotate a byte vector left by `positions` bytes (reference uint8.rs:360-393)."""
+    return _rotate_bytes_adjusted(bytes_vec, positions, cs)
+
+
+def rotate_bytes_right(bytes_vec: list[UIntGadget], positions: int, cs: ConstraintSystem) -> list[UIntGadget]:
+    """Rotate right = rotate_left(total_bits - positions % total_bits)
+    (reference uint8.rs:395-405)."""
+    total_bits = 8 * len(bytes_vec)
+    return _rotate_bytes_adjusted(bytes_vec, total_bits - (positions % total_bits), cs)

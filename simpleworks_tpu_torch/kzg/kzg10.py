@@ -212,10 +212,10 @@ def _gamma_msm(srs: UniversalSRS, coeffs: list[int]) -> G1Point:
 # -------------------------------------------------------- commit and open --
 
 #: CPU tensors at most this wide take the host Pippenger over the SRS points
-#: read back: on the CPU the tensor MSM runs through the plain field
-#: versions and costs ~0.6 s even for a few points.  CUDA tensors always take
-#: the device MSM.
-HOST_MSM_MAX_WIDTH = 64
+#: read back: on the CPU the tensor MSM runs through the plain field versions
+#: and costs many times the host Pippenger at these widths.  CUDA tensors
+#: always take the device MSM.
+HOST_MSM_MAX_WIDTH = 1024
 
 
 def _srs_msm(srs: UniversalSRS, coeffs: torch.Tensor, offset: int = 0) -> G1Point:

@@ -4,7 +4,8 @@ Route: ``nvcc`` into a shared object with a plain C interface, bound with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  Each source under
 ``simpleworks_tpu_torch/csrc/`` is built at first use into
 ``simpleworks_tpu_torch/csrc/build/`` (git-ignored), named by a hash of the
-source and flags so an edited source never loads a stale build.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header never loads a stale build.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
@@ -43,10 +44,16 @@ SIGNATURES = {
     "ntt_kernels": {
         "swt_ntt_reduce": [_P, _I64, _P, _I64, _P, ctypes.c_uint32, _P],
     },
+    "g1_kernels": {
+        "swt_g1_fused_add": [_P, _P, _I64, _P, ctypes.c_uint32, _P, _P],
+        "swt_g1_fused_madd": [_P, _P, _I64, _P, ctypes.c_uint32, _P, _P],
+        "swt_g1_kernel_resources": [_P],
+    },
 }
 
 #: kernel launches by kernel name since the last :func:`reset_launches`
-LAUNCHES = {"mont_mul": 0, "mod_add": 0, "mod_sub": 0, "mont_pow": 0, "ntt_reduce": 0}
+LAUNCHES = {"mont_mul": 0, "mod_add": 0, "mod_sub": 0, "mont_pow": 0, "ntt_reduce": 0,
+            "g1_fused_add": 0, "g1_fused_madd": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 #: seconds of wall clock the builds took in this process (0.0 while only
@@ -68,7 +75,8 @@ def _nvcc() -> str:
 
 
 def _library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 

@@ -1,0 +1,233 @@
+"""Complete BLS12-377 G1 point adds in one launch: the two fused kernels of
+``csrc/g1_kernels.cu`` and their plain PyTorch versions.
+
+Port of ``simpleworks_tpu/ops/g1_fused_pallas.py``.  A point is a tuple of
+limb-major ``[24, B]`` ``torch.int32`` Fq Montgomery planes: Jacobian
+(X, Y, Z) with Z = 0 the identity, or affine (x, y) with x = y = 0 the
+identity.
+
+* :func:`fused_add` — Jacobian + Jacobian (add-2007-bl, 16 multiplies);
+* :func:`fused_madd` — Jacobian + affine (madd-2007-bl, 11 multiplies).
+
+Both are complete: the equal-x cases double (dbl-2009-l) or cancel, and the
+identities pass the other operand through, selected in the reference
+kernels' order.  On CUDA tensors each wrapper launches its kernel (one
+launch, counted in ``LAUNCHES``) or raises; on CPU tensors it runs its plain
+version, the same formula over the field kernels' plain versions, which
+runs on any device.  The formulas here, given the field ops of
+:mod:`.mont_mul`, are also the composed adds of :mod:`.g1_limb`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..fields.device import FQ
+from ._build import LAUNCHES
+from .mont_mul import (
+    _check, _on_cuda, _raise_on, mod_add_plain, mod_sub_plain, mont_mul_plain,
+)
+
+__all__ = ["fused_add", "fused_madd", "fused_add_plain", "fused_madd_plain"]
+
+
+class PlainFq:
+    """Fq ops on [24, B] tensors through the field kernels' plain versions."""
+
+    @staticmethod
+    def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return mont_mul_plain(a, b, FQ)
+
+    @staticmethod
+    def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return mod_add_plain(a, b, FQ)
+
+    @staticmethod
+    def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return mod_sub_plain(a, b, FQ)
+
+    @staticmethod
+    def is_zero(a: torch.Tensor) -> torch.Tensor:
+        return (a == 0).all(dim=0)
+
+    @staticmethod
+    def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """cond: [B] bool; a/b: [24, B]."""
+        return torch.where(cond[None, :], a, b)
+
+
+# ------------------------------------------------------------ the formulas --
+
+
+def one(batch: int, device) -> torch.Tensor:
+    return FQ.one(batch, device).contiguous()
+
+
+def identity(batch: int, device):
+    o = one(batch, device)
+    return o, o, torch.zeros_like(o)
+
+
+def select_point(cond, p, q):
+    return tuple(torch.where(cond[None, :], a, b) for a, b in zip(p, q))
+
+
+def double_formula(p, f):
+    """Jacobian doubling (dbl-2009-l, a = 0) over the field ops ``f``; Z = 0
+    in gives Z = 0 out."""
+    X1, Y1, Z1 = p
+    A = f.mul(X1, X1)
+    B = f.mul(Y1, Y1)
+    C = f.mul(B, B)
+    t = f.add(X1, B)
+    D = f.sub(f.sub(f.mul(t, t), A), C)
+    D = f.add(D, D)
+    E = f.add(f.add(A, A), A)
+    F = f.mul(E, E)
+    X3 = f.sub(F, f.add(D, D))
+    eight_c = f.add(C, C)
+    eight_c = f.add(eight_c, eight_c)
+    eight_c = f.add(eight_c, eight_c)
+    Y3 = f.sub(f.mul(E, f.sub(D, X3)), eight_c)
+    Z3 = f.mul(f.add(Y1, Y1), Z1)
+    return (X3, Y3, Z3)
+
+
+def add_formula(p, q, f):
+    """Complete (branchless) Jacobian addition over the field ops ``f``."""
+    X1, Y1, Z1 = p
+    X2, Y2, Z2 = q
+    Z1Z1 = f.mul(Z1, Z1)
+    Z2Z2 = f.mul(Z2, Z2)
+    U1 = f.mul(X1, Z2Z2)
+    U2 = f.mul(X2, Z1Z1)
+    S1 = f.mul(f.mul(Y1, Z2), Z2Z2)
+    S2 = f.mul(f.mul(Y2, Z1), Z1Z1)
+    H = f.sub(U2, U1)
+    rr = f.sub(S2, S1)
+    rr2 = f.add(rr, rr)
+    I = f.mul(f.add(H, H), f.add(H, H))
+    J = f.mul(H, I)
+    V = f.mul(U1, I)
+    X3 = f.sub(f.sub(f.mul(rr2, rr2), J), f.add(V, V))
+    SJ = f.mul(S1, J)
+    Y3 = f.sub(f.mul(rr2, f.sub(V, X3)), f.add(SJ, SJ))
+    Zsum = f.add(Z1, Z2)
+    Z3 = f.mul(f.sub(f.sub(f.mul(Zsum, Zsum), Z1Z1), Z2Z2), H)
+    general = (X3, Y3, Z3)
+
+    h_zero = f.is_zero(H)
+    r_zero = f.is_zero(rr)
+    p_ident = f.is_zero(Z1)
+    q_ident = f.is_zero(Z2)
+    ident = identity(X3.shape[1], X3.device)
+
+    # same x: equal points double, opposite points cancel
+    out = select_point(h_zero & r_zero, double_formula(p, f), general)
+    out = select_point(h_zero & ~r_zero & ~p_ident & ~q_ident, ident, out)
+    out = select_point(q_ident, p, out)
+    return select_point(p_ident, q, out)
+
+
+def madd_formula(p, q_affine, f):
+    """Complete mixed addition over the field ops ``f``: Jacobian ``p`` +
+    affine ``q = (X2, Y2)`` (madd-2007-bl, Z2 = 1)."""
+    X1, Y1, Z1 = p
+    X2, Y2 = q_affine
+    Z1Z1 = f.mul(Z1, Z1)
+    U2 = f.mul(X2, Z1Z1)
+    S2 = f.mul(f.mul(Y2, Z1), Z1Z1)
+    H = f.sub(U2, X1)
+    rr = f.sub(S2, Y1)
+    HH = f.mul(H, H)
+    I = f.add(f.add(HH, HH), f.add(HH, HH))
+    J = f.mul(H, I)
+    r2 = f.add(rr, rr)
+    V = f.mul(X1, I)
+    X3 = f.sub(f.sub(f.mul(r2, r2), J), f.add(V, V))
+    YJ = f.mul(Y1, J)
+    Y3 = f.sub(f.mul(r2, f.sub(V, X3)), f.add(YJ, YJ))
+    Zsum = f.add(Z1, H)
+    Z3 = f.sub(f.sub(f.mul(Zsum, Zsum), Z1Z1), HH)
+    general = (X3, Y3, Z3)
+
+    h_zero = f.is_zero(H)
+    r_zero = f.is_zero(rr)
+    p_ident = f.is_zero(Z1)
+    q_ident = f.is_zero(X2) & f.is_zero(Y2)
+    B = X3.shape[1]
+
+    out = select_point(h_zero & r_zero & ~p_ident & ~q_ident, double_formula(p, f), general)
+    out = select_point(h_zero & ~r_zero & ~p_ident & ~q_ident, identity(B, X3.device), out)
+    out = select_point(p_ident, (X2, Y2, one(B, X3.device)), out)
+    return select_point(q_ident, p, out)
+
+
+def fused_add_plain(p3, q3):
+    """The plain version of :func:`fused_add`, on any device."""
+    return add_formula(p3, q3, PlainFq)
+
+
+def fused_madd_plain(p3, q2):
+    """The plain version of :func:`fused_madd`, on any device."""
+    return madd_formula(p3, q2, PlainFq)
+
+
+# ------------------------------------------------------------------ wrappers --
+
+
+def _launch(name: str, symbol: str, planes) -> tuple:
+    from ._build import library
+
+    fn = getattr(library("g1_kernels"), symbol)
+    x = planes[0]
+    B = x.shape[1]
+    out = torch.empty((3, FQ.n_limbs, B), dtype=torch.int32, device=x.device)
+    if B == 0:
+        return out[0], out[1], out[2]
+    views = (ctypes.c_int64 * (3 * len(planes)))(
+        *[v for t in planes for v in (t.data_ptr(), t.stride(0), t.stride(1))])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(ctypes.addressof(views), out.data_ptr(), B, FQ.p_words_ptr, FQ.n0_32,
+                FQ.one_words_ptr, stream)
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return out[0], out[1], out[2]
+
+
+def kernel_resources() -> dict:
+    """Registers and local (spill) bytes a thread of each fused kernel, as
+    the card's compiler built them."""
+    from ._build import library
+
+    out = (ctypes.c_int * 4)()
+    _raise_on(library("g1_kernels").swt_g1_kernel_resources(ctypes.addressof(out)),
+              "g1 kernel attributes")
+    return {"g1_fused_add": {"registers": out[0], "local_bytes": out[1]},
+            "g1_fused_madd": {"registers": out[2], "local_bytes": out[3]}}
+
+
+def fused_add(p3, q3):
+    """Complete Jacobian addition p3 + q3 of ([24, B],)*3 Fq planes."""
+    planes = (*p3, *q3)
+    if len(planes) != 6:
+        raise ValueError("fused_add takes two (X, Y, Z) coordinate triples")
+    _check(FQ, *planes)
+    if not _on_cuda(planes[0]):
+        return fused_add_plain(p3, q3)
+    return _launch("g1_fused_add", "swt_g1_fused_add", planes)
+
+
+def fused_madd(p3, q2):
+    """Complete mixed addition of Jacobian ([24, B],)*3 p3 and affine
+    ([24, B],)*2 q2 (x = y = 0 the identity)."""
+    planes = (*p3, *q2)
+    if len(planes) != 5:
+        raise ValueError("fused_madd takes an (X, Y, Z) triple and an (x, y) pair")
+    _check(FQ, *planes)
+    if not _on_cuda(planes[0]):
+        return fused_madd_plain(p3, q2)
+    return _launch("g1_fused_madd", "swt_g1_fused_madd", planes)

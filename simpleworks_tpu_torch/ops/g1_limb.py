@@ -3,13 +3,18 @@
 Port of ``simpleworks_tpu/ops/g1_limb.py``: the compute path of the device
 Pippenger MSM (:mod:`.msm_pippenger`) and of the SRS fixed-base powers
 (:mod:`.srs_device`).  Coordinates are limb-major ``[24, B]`` ``torch.int32``
-tensors of 16-bit Fq Montgomery limbs.  Every Fq multiply, add, subtract and
-inverse goes through the field kernels of :mod:`.mont_mul`; selects and
-zero tests are plain tensor ops.
+tensors of 16-bit Fq Montgomery limbs.
 
 Complete branchless formulas: Z = 0 encodes the Jacobian identity, x = y = 0
-the affine identity, and the equal-x cases resolve with selects.  The
-composed point adds are the default; a fused point-add kernel is later work.
+the affine identity, and the equal-x cases resolve with selects.  The point
+adds :func:`add` and :func:`madd` are one launch of a fused kernel on CUDA
+tensors and its plain version on CPU tensors (:mod:`.g1_fused`; the port's
+counterpart of the reference's ``SWTPU_FUSED_ADD=1``, with no switch and no
+route back to the composed adds on the card).  Everything else
+(:func:`double`, :func:`affine_madd`, the batch inversion) composes the
+field kernels of :mod:`.mont_mul`; selects and zero tests are plain tensor
+ops.  The composed adds stay as ``_add_composed`` and ``_madd_composed``, a
+second witness for the fused kernels on the card.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from ..curves.bls12_377 import G1Point
 from ..device import resolve
 from ..fields.bls12_377 import FQ_MODULUS
 from ..fields.device import FQ, from_mont, to_mont
+from . import g1_fused
+from .g1_fused import fused_add, fused_madd, identity, one, select_point
 from .mont_mul import mod_add, mod_sub, mont_mul, mont_pow
 
 Q = FQ_MODULUS
@@ -34,8 +41,9 @@ def inverse_base(device: torch.device) -> int:
     return 8192 if device.type == "cuda" else 64
 
 
-class FqLimb:
-    """Batched Fq ops on limb-major [24, B] Montgomery tensors."""
+class FqLimb(g1_fused.PlainFq):
+    """Batched Fq ops on limb-major [24, B] Montgomery tensors through the
+    field kernels (their plain versions on CPU tensors)."""
 
     def __init__(self, base: int | None = None):
         self.base = base  # None: inverse_base of the input's device
@@ -54,15 +62,6 @@ class FqLimb:
 
     def dbl(self, a: torch.Tensor) -> torch.Tensor:
         return self.add(a, a)
-
-    @staticmethod
-    def is_zero(a: torch.Tensor) -> torch.Tensor:
-        return (a == 0).all(dim=0)
-
-    @staticmethod
-    def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """cond: [B] bool; a/b: [24, B]."""
-        return torch.where(cond[None, :], a, b)
 
     @staticmethod
     def inv(x: torch.Tensor) -> torch.Tensor:
@@ -102,110 +101,32 @@ _F = FqLimb()
 # ------------------------------------------------------------- points ----
 
 
-def _one(batch: int, device) -> torch.Tensor:
-    return FQ.one(batch, device).contiguous()
-
-
-def identity(batch: int, device):
-    one = _one(batch, device)
-    return one, one, torch.zeros_like(one)
-
-
-def select_point(cond, p, q):
-    return tuple(_F.select(cond, a, b) for a, b in zip(p, q))
-
-
 def double(p):
     """Jacobian doubling (dbl-2009-l, a = 0); Z = 0 in gives Z = 0 out."""
-    f = _F
-    X1, Y1, Z1 = p
-    A = f.mul(X1, X1)
-    B = f.mul(Y1, Y1)
-    C = f.mul(B, B)
-    t = f.add(X1, B)
-    D = f.sub(f.sub(f.mul(t, t), A), C)
-    D = f.add(D, D)
-    E = f.add(f.add(A, A), A)
-    F = f.mul(E, E)
-    X3 = f.sub(F, f.add(D, D))
-    eight_c = f.add(C, C)
-    eight_c = f.add(eight_c, eight_c)
-    eight_c = f.add(eight_c, eight_c)
-    Y3 = f.sub(f.mul(E, f.sub(D, X3)), eight_c)
-    Z3 = f.mul(f.add(Y1, Y1), Z1)
-    return (X3, Y3, Z3)
+    return g1_fused.double_formula(p, _F)
 
 
 def add(p, q):
-    """Complete (branchless) Jacobian addition of [24, B] coordinate triples."""
-    f = _F
-    X1, Y1, Z1 = p
-    X2, Y2, Z2 = q
-    Z1Z1 = f.mul(Z1, Z1)
-    Z2Z2 = f.mul(Z2, Z2)
-    U1 = f.mul(X1, Z2Z2)
-    U2 = f.mul(X2, Z1Z1)
-    S1 = f.mul(f.mul(Y1, Z2), Z2Z2)
-    S2 = f.mul(f.mul(Y2, Z1), Z1Z1)
-    H = f.sub(U2, U1)
-    rr = f.sub(S2, S1)
-    rr2 = f.add(rr, rr)
-    I = f.mul(f.add(H, H), f.add(H, H))
-    J = f.mul(H, I)
-    V = f.mul(U1, I)
-    X3 = f.sub(f.sub(f.mul(rr2, rr2), J), f.add(V, V))
-    SJ = f.mul(S1, J)
-    Y3 = f.sub(f.mul(rr2, f.sub(V, X3)), f.add(SJ, SJ))
-    Zsum = f.add(Z1, Z2)
-    Z3 = f.mul(f.sub(f.sub(f.mul(Zsum, Zsum), Z1Z1), Z2Z2), H)
-    general = (X3, Y3, Z3)
-
-    h_zero = f.is_zero(H)
-    r_zero = f.is_zero(rr)
-    p_ident = f.is_zero(Z1)
-    q_ident = f.is_zero(Z2)
-    ident = identity(X3.shape[1], X3.device)
-
-    # same x: equal points double, opposite points cancel
-    out = select_point(h_zero & r_zero, double(p), general)
-    out = select_point(h_zero & ~r_zero & ~p_ident & ~q_ident, ident, out)
-    out = select_point(q_ident, p, out)
-    return select_point(p_ident, q, out)
+    """Complete Jacobian addition of [24, B] coordinate triples: one fused
+    kernel launch on CUDA tensors."""
+    return fused_add(p, q)
 
 
 def madd(p, q_affine):
     """Complete mixed addition: Jacobian ``p`` + affine ``q = (X2, Y2)``
-    (madd-2007-bl, Z2 = 1; x = y = 0 encodes the affine identity)."""
-    f = _F
-    X1, Y1, Z1 = p
-    X2, Y2 = q_affine
-    Z1Z1 = f.mul(Z1, Z1)
-    U2 = f.mul(X2, Z1Z1)
-    S2 = f.mul(f.mul(Y2, Z1), Z1Z1)
-    H = f.sub(U2, X1)
-    rr = f.sub(S2, Y1)
-    HH = f.mul(H, H)
-    I = f.add(f.add(HH, HH), f.add(HH, HH))
-    J = f.mul(H, I)
-    r2 = f.add(rr, rr)
-    V = f.mul(X1, I)
-    X3 = f.sub(f.sub(f.mul(r2, r2), J), f.add(V, V))
-    YJ = f.mul(Y1, J)
-    Y3 = f.sub(f.mul(r2, f.sub(V, X3)), f.add(YJ, YJ))
-    Zsum = f.add(Z1, H)
-    Z3 = f.sub(f.sub(f.mul(Zsum, Zsum), Z1Z1), HH)
-    general = (X3, Y3, Z3)
+    (madd-2007-bl, Z2 = 1; x = y = 0 encodes the affine identity): one fused
+    kernel launch on CUDA tensors."""
+    return fused_madd(p, q_affine)
 
-    h_zero = f.is_zero(H)
-    r_zero = f.is_zero(rr)
-    p_ident = f.is_zero(Z1)
-    q_ident = f.is_zero(X2) & f.is_zero(Y2)
-    B = X3.shape[1]
 
-    out = select_point(h_zero & r_zero & ~p_ident & ~q_ident, double(p), general)
-    out = select_point(h_zero & ~r_zero & ~p_ident & ~q_ident, identity(B, X3.device), out)
-    out = select_point(p_ident, (X2, Y2, _one(B, X3.device)), out)
-    return select_point(q_ident, p, out)
+def _add_composed(p, q):
+    """:func:`add` composed of field-kernel launches."""
+    return g1_fused.add_formula(p, q, _F)
+
+
+def _madd_composed(p, q_affine):
+    """:func:`madd` composed of field-kernel launches."""
+    return g1_fused.madd_formula(p, q_affine, _F)
 
 
 def affine_madd(acc, q_affine, valid):
@@ -236,7 +157,7 @@ def affine_madd(acc, q_affine, valid):
     den = f.select(dbl, f.dbl(y1), dx)                 # 2y1  | x2−x1
     den_zero = f.is_zero(den)
     degenerate = acc_inf | q_inf | den_zero
-    inv = f.batch_inverse(f.select(degenerate, _one(B, x1.device), den))
+    inv = f.batch_inverse(f.select(degenerate, one(B, x1.device), den))
 
     lam = f.mul(num, inv)
     x3 = f.sub(f.sub(f.mul(lam, lam), x1), x2)
@@ -269,7 +190,7 @@ def normalize_affine(xyz):
     identity as x = y = 0): one batched inversion of Z on the device."""
     X, Y, Z = xyz
     is_id = _F.is_zero(Z)
-    zinv = _F.batch_inverse(_F.select(is_id, _one(Z.shape[1], Z.device), Z))
+    zinv = _F.batch_inverse(_F.select(is_id, one(Z.shape[1], Z.device), Z))
     z2 = _F.mul(zinv, zinv)
     x = _F.mul(X, z2)
     y = _F.mul(_F.mul(Y, z2), zinv)

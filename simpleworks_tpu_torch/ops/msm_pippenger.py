@@ -14,10 +14,13 @@ Port of the default device route of ``simpleworks_tpu/ops/msm_pippenger.py``
    d; digit 0 has weight 0 and owns no entries).
 3. **Accumulate**: a Python loop over the D grid rows; each row gathers an
    affine point batch (X, Y only: the SRS is normalised to Z = 1) and does
-   one complete batch-affine add (``g1_limb.affine_madd``, the default on
-   CUDA) or Jacobian mixed add (``"madd"``, the oracle and the CPU default).
+   one complete batch-affine add (``g1_limb.affine_madd``, ~25 field-kernel
+   launches and one Fermat pow a row; the default on CUDA, as on the TPU) or
+   Jacobian mixed add (``"madd"``: one launch of the fused mixed-add kernel
+   a row on CUDA; the CPU default).
 4. **Bucket combine**: segment fold, then Σ_d d·S_d per window by two
-   inclusive suffix passes over the bucket axis.
+   inclusive suffix passes over the bucket axis, each step one launch of the
+   fused Jacobian add kernel on CUDA (``g1_limb.add``).
 5. **Host window fold**: the W window sums come back and Horner with c
    doublings a window combines them.
 """
@@ -145,7 +148,7 @@ def accumulate_windows(points_xy: torch.Tensor, idx: torch.Tensor, valid: torch.
 
     ``accum``: ``"affine"`` keeps the accumulator affine and does batch-affine
     adds (~4 muls plus a shared batched inversion a row); ``"madd"`` does the
-    11-mul Jacobian mixed add (the oracle)."""
+    11-mul Jacobian mixed add (one fused kernel launch a row on CUDA)."""
     dev = points_xy.device
     if accum is None:
         accum = default_accum(dev)

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (the field kernels and the NTT's reduce kernel)
-against their plain PyTorch versions, on the card (exact equality: field
-arithmetic is exact).
+"""The port's CUDA kernels (the field kernels, the NTT's reduce kernel and
+the fused G1 point adds) against their plain PyTorch versions, on the card
+(exact equality: field arithmetic is exact).
 
 Skips without a CUDA device.  On a machine with one:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
@@ -109,6 +109,68 @@ def test_ntt_matches_host_oracle(cuda):
         y = dvec.fft(x, n)
         assert dvec.to_ints(y) == ntt_host(dvec.to_ints(x), fr_root_of_unity(n))
         assert torch.equal(dvec.ifft(y, n), x)
+
+
+def fused_cases(ins):
+    """(launch-count name, kernel wrapper, plain version, arguments) of the
+    two fused point adds on one set of g1_inputs."""
+    from simpleworks_tpu_torch.ops import g1_fused
+
+    return [("g1_fused_add", g1_fused.fused_add, g1_fused.fused_add_plain, (ins["p3"], ins["q3"])),
+            ("g1_fused_madd", g1_fused.fused_madd, g1_fused.fused_madd_plain,
+             (ins["p3"], ins["q2"]))]
+
+
+@pytest.mark.parametrize("n", [1, 257, 5000])
+def test_fused_point_adds_match_plain(cuda, n):
+    """Every lane case (identities, doubling, P + (-P), general) against the
+    plain version and the composed adds, one launch counted per call."""
+    from chip_smoke import g1_inputs
+    from simpleworks_tpu_torch.ops import g1_limb
+
+    ins = g1_inputs(n, 9, cuda)
+    composed = {"g1_fused_add": g1_limb._add_composed, "g1_fused_madd": g1_limb._madd_composed}
+    for name, op, plain, args in fused_cases(ins):
+        before = mm.LAUNCHES[name]
+        got = op(*args)
+        torch.cuda.synchronize()
+        assert mm.LAUNCHES[name] == before + 1
+        expected = plain(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, expected)), name
+        assert all(torch.equal(a, b) for a, b in zip(got, composed[name](*args))), name
+        if n <= 257:
+            assert g1_limb.points_from_limb_major(got) == \
+                [p.add(q) for p, q in zip(ins["p"], ins["q"])], name
+
+
+def test_fused_point_adds_read_strided_halves(cuda):
+    from chip_smoke import g1_inputs
+
+    ins = g1_inputs(1000, 10, cuda)
+    halves = {k: (tuple(a[:, :500] for a in ins[k]), tuple(a[:, 500:] for a in ins[k]))
+              for k in ("p3", "q3", "q2")}
+    lo = {k: v[0] for k, v in halves.items()}
+    hi = {k: v[1] for k, v in halves.items()}
+    for (_, op, plain, args_lo), (_, _, _, args_hi) in zip(fused_cases(lo), fused_cases(hi)):
+        args = (args_lo[0], args_hi[1])  # p from the low half, q from the high half
+        dense = tuple(tuple(a.contiguous() for a in pt) for pt in args)
+        assert all(torch.equal(a, b) for a, b in zip(op(*args), plain(*dense)))
+
+
+def test_fused_point_adds_reject_bad_inputs(cuda):
+    from chip_smoke import g1_inputs
+    from simpleworks_tpu_torch.ops import g1_fused
+
+    ins = g1_inputs(8, 11, cuda)
+    p3, q3 = ins["p3"], ins["q3"]
+    with pytest.raises(TypeError):
+        g1_fused.fused_add(tuple(a.to(torch.int64) for a in p3), q3)
+    with pytest.raises(ValueError):
+        g1_fused.fused_add(p3, (q3[0].cpu(), q3[1], q3[2]))
+    with pytest.raises(ValueError):
+        g1_fused.fused_madd(p3, q3[:1])
+    with pytest.raises(ValueError):
+        g1_fused.fused_madd(p3, (q3[0][:16], q3[1][:16]))
 
 
 def test_default_device_is_the_card(cuda):
