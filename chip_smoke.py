@@ -15,7 +15,8 @@ printed as one JSON line, any failure raising:
    seed-made inputs with the edge values 0, 1 and p-1 mixed in, at the
    shapes the main path gives it, compared exactly (field arithmetic is
    exact), and timed;
-4. each fused G1 point add against its plain version and against the
+4. the fused G1 point add and the mixed add (the one-row case of the
+   bucket-accumulate kernel) against their plain versions and against the
    composed adds over the field kernels, exactly, at the MSM's lane widths
    [24, 32768] and [24, 155648], on seed-made points with the identities,
    doublings and P + (-P) mixed in, timed; and 2048 lanes against the host
@@ -29,8 +30,12 @@ printed as one JSON line, any failure raising:
    batch check (True, then False with one evaluation changed), and a
    commitment held against the host MSM over the SRS points read back;
 7. the MSM path: msm_device_mont over that SRS at 2^17 and 2^20 points (the
-   bench's MSM legs) under the batch-affine accumulate and under the fused
-   mixed add ("madd"): equal group elements, and the seconds of each;
+   bench's MSM legs) under the batch-affine accumulate and under the mixed
+   add ("madd", the default: one accumulate-kernel launch a group): equal
+   group elements, and the seconds of each; then the accumulate kernel alone
+   at the c = 13 group of the 2^20-point MSM (its real depth and 155,648
+   lanes) against the plain version (exact), timed, with its registers
+   and spills;
 8. the chain path: a square-add chain with one public input at n = 2^14
    through universal_setup -> index -> prove (twice) -> verify (True; False
    with one evaluation or the public input changed);
@@ -38,7 +43,15 @@ printed as one JSON line, any failure raising:
    through universal_setup(100k, 25k, 300k) -> index -> prove (twice) ->
    verify (True; False with one evaluation changed), with the seconds of
    each step, the prover's regions of the warm prove, the proof size and
-   the peak device memory;
+   the peak device memory; the verifying key and the proof equal, byte for
+   byte, the JAX package's host prover on the same draws (the fixture
+   tests/torch_fixtures/schnorr_bench_reference.json); the Fermat pow's
+   launches counted by caller (dvec.inv and g1_limb.normalize_affine only:
+   no accumulate row inverts); then one more warm prove with the
+   accumulate forced to "affine", outside the path's counts, which must
+   show that it took that route (no accumulate-kernel launch, the pow in
+   the affine rows): equal bytes, and its seconds and regions beside the
+   madd prove's;
 10. the card against the CPU: a square-add chain of 5 proved on both, equal
     proof bytes (the CPU path is the one the tests hold against the JAX
     package);
@@ -57,11 +70,14 @@ torch.profiler: the device's busy share of the prove and its busiest kernels.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 #: degree of the Marlin SRS for SRS(100k, 25k, 300k): n = 2^17, m = 2^19,
 #: max(3n - 1, 3m - 3) (simpleworks_tpu/marlin/ahp.py max_degree_for)
@@ -106,6 +122,13 @@ MSM_LOGS = (17, 20)
 #: the card-against-CPU pin: n = 8, m = 16 at SRS(16, 16, 32)
 PIN_STEPS = 5
 PIN_SRS_SIZES = (16, 16, 32)
+#: the JAX package's verifying-key and proof bytes of the Marlin path's
+#: prove (tests/test_torch_bench_fixture.py makes and checks the file)
+REFERENCE_FIXTURE = Path(__file__).resolve().parent / "tests" / "torch_fixtures" / \
+    "schnorr_bench_reference.json"
+#: the accumulate check: the c = 13 group of a 2^20-point MSM
+ACCUMULATE_LOG = 20
+ACCUMULATE_C = 13
 
 FIELD_SOURCE = "simpleworks_tpu_torch/csrc/field_kernels.cu"
 NTT_SOURCE = "simpleworks_tpu_torch/csrc/ntt_kernels.cu"
@@ -124,8 +147,9 @@ REPLACES = {
 }
 #: the kernels that compute in the field alone (check_kernels)
 FIELD_KERNELS = ("mont_mul", "mod_add", "mod_sub", "mont_pow")
-#: Fq multiplies of one lane of each point add: the general formula, and the
-#: doubling that only the lanes needing it run
+#: Fq multiplies of one lane of each point add (or of one valid cell of the
+#: accumulate): the general formula, and the doubling that only the lanes
+#: needing it run
 G1_MULS = {"g1_fused_add": 16, "g1_fused_madd": 11}
 DOUBLE_MULS = 7
 #: the lane cases of the G1 point-add checks (g1_inputs)
@@ -341,6 +365,54 @@ def check_g1(device, widths=G1_LANES) -> dict:
     return results
 
 
+def check_accumulate(device, log_n: int = ACCUMULATE_LOG, c: int = ACCUMULATE_C,
+                     max_degree: int = MAX_DEGREE) -> dict:
+    """The bucket-accumulate kernel at the widest group of the MSM path's
+    2^log_n-point MSM (window bits c) over the KZG path's SRS, at the
+    group's real depth: the kernel against the plain version (exact),
+    timed, with its registers and spills.  Its launches here are checks,
+    outside every path's counts."""
+    import torch
+
+    from simpleworks_tpu_torch.kzg import kzg10
+    from simpleworks_tpu_torch.ops import g1_fused
+    from simpleworks_tpu_torch.ops import msm_pippenger as mp
+    from simpleworks_tpu_torch.utils.rng import test_rng
+
+    srs = kzg10.setup(max_degree, test_rng(), device=device)
+    coeffs = random_poly(1 << log_n, 100 + log_n, device)  # run_msm's coefficients
+    digits, stats = mp.mont_digits(coeffs, c)
+    metas = mp._meta_from_stats(
+        [(w, int(o), max(int(m), 1)) for w, (o, m) in enumerate(stats.tolist())],
+        mp.target_lanes(device))
+    window_ids, segs, b_g, depth = max(metas, key=lambda m: len(m[0]) * m[1] * m[2])
+    ids = torch.tensor(window_ids, dtype=torch.int64, device=device)
+    idx, valid = mp.device_grid_from_digits(digits.index_select(0, ids), depth, segs, b_g, 0)
+    rows = srs.powers_xy.reshape(48, -1).t().contiguous()  # as accumulate_windows lays it out
+    sync(device)
+    t0 = time.perf_counter()
+    expected = g1_fused.madd_accumulate_plain(None, rows, idx, valid)
+    sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = g1_fused.madd_accumulate(None, rows, idx, valid)
+    sync(device)
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              for a, b in zip(got, expected))
+    if not all(map(torch.equal, got, expected)):
+        raise AssertionError(f"the accumulate kernel disagrees with its plain version "
+                             f"(max abs err {err})")
+    del got
+    # each lane sums distinct SRS powers tau^i G, so no accumulator equals the
+    # point it adds (that would be a relation among the powers): no cell doubles
+    return {"shape": [24, idx.shape[1]], "depth": depth, "windows": len(window_ids),
+            "segments": segs, "buckets": b_g, "valid_cells": int(valid.sum()),
+            "double_cells": 0, "start": False, "equal": True, "max_abs_err": err,
+            **g1_fused.kernel_resources()["g1_fused_madd"],
+            "ms": time_ms(lambda: g1_fused.madd_accumulate(None, rows, idx, valid), device,
+                          reps=3, inner=3),
+            "plain_ms": plain_ms}
+
+
 def check_ntt(device, log_n: int = NTT_LOG, oracle_log: int = ORACLE_LOG) -> dict:
     """The reduce kernel against its plain version on real first-level
     planes (exact), the NTT round trip at 2^log_n, and fft against the
@@ -423,12 +495,15 @@ def schnorr_circuit(message: bytes = MESSAGE):
     return synthesize(params, pk, message, schnorr.sign(params, sk, message, rng))
 
 
-def run_marlin(device, build=schnorr_circuit, public=(), sizes=SRS_SIZES) -> dict:
+def run_marlin(device, build=schnorr_circuit, public=(), sizes=SRS_SIZES, reference=None,
+               keep: dict | None = None) -> dict:
     """synthesis (``build()``) -> universal_setup -> index -> prove (twice) ->
     verify through the port's public functions; returns the seconds of each
     step and what the checks saw.  Raises on a wrong result: verify must
     accept the proof and reject it with one evaluation changed, and with the
-    public input changed where the circuit has one."""
+    public input changed where the circuit has one; with ``reference`` (the
+    fixture's dict), the verifying key and the proof must equal its bytes.
+    ``keep`` receives the proving key, the circuit and the proof bytes."""
     import dataclasses
 
     import torch
@@ -436,7 +511,7 @@ def run_marlin(device, build=schnorr_circuit, public=(), sizes=SRS_SIZES) -> dic
     from simpleworks_tpu_torch import marlin
     from simpleworks_tpu_torch.fields.bls12_377 import FR_MODULUS
     from simpleworks_tpu_torch.marlin import ahp
-    from simpleworks_tpu_torch.marlin.serialization import serialize_proof
+    from simpleworks_tpu_torch.marlin.serialization import serialize_proof, serialize_verifying_key
     from simpleworks_tpu_torch.utils.observability import PROVER_TIMER
 
     steps_s: dict[str, float] = {}
@@ -468,8 +543,13 @@ def run_marlin(device, build=schnorr_circuit, public=(), sizes=SRS_SIZES) -> dic
     proof = timed("prove_warm_s", lambda: marlin.prove(pk, cs))
     regions = dict(PROVER_TIMER.totals)
     PROVER_TIMER.synchronize = False
-    if serialize_proof(proof) != serialize_proof(proof_cold):
+    proof_bytes = serialize_proof(proof)
+    if proof_bytes != serialize_proof(proof_cold):
         raise AssertionError("the two proves of one circuit differ")
+    same = None if reference is None else check_reference(
+        reference, serialize_verifying_key(vk), proof_bytes)
+    if keep is not None:
+        keep.update(pk=pk, cs=cs, proof=proof_bytes)
     accepted = timed("verify_s", lambda: marlin.verify(vk, public, proof))
     bad_evals = dict(proof.evaluations)
     bad_evals["w"] = (bad_evals["w"] + 1) % FR_MODULUS
@@ -481,9 +561,85 @@ def run_marlin(device, build=schnorr_circuit, public=(), sizes=SRS_SIZES) -> dic
                              f"{rejected_eval}, rejected changed input={rejected_input}")
     return {"shape": shape, "srs_max_degree": srs.max_degree, "steps": steps_s,
             "index_regions": index_regions, "prove_warm_regions": regions,
-            "proof_bytes": len(serialize_proof(proof)), "verify": accepted,
+            "proof_bytes": len(proof_bytes), "reference": same, "verify": accepted,
             "verify_tampered_evaluation": not rejected_eval,
             "verify_changed_input": None if not public else not rejected_input}
+
+
+def check_reference(reference: dict, vk_bytes: bytes, proof_bytes: bytes) -> dict:
+    """The verifying key, then the proof, against the reference's bytes;
+    on a difference prints the first differing byte offset and raises."""
+    out = {}
+    for key, got in (("verifying_key", vk_bytes), ("proof", proof_bytes)):
+        want = bytes.fromhex(reference[key]["hex"])
+        if got != want:
+            at = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                      min(len(got), len(want)))
+            emit({"reference_mismatch": {"what": key, "first_differing_byte": at,
+                                         "bytes": len(got), "reference_bytes": len(want)}})
+            raise AssertionError(f"the card's {key} differs from the reference's at byte {at}")
+        out[key] = {"bytes": len(got), "sha256": hashlib.sha256(got).hexdigest(), "equal": True}
+    return out
+
+
+def run_affine_prove(device, pk, cs, proof_bytes: bytes) -> dict:
+    """One more warm prove with the MSM accumulate forced to "affine" (the
+    batch-affine add with a Fermat pow a row): its proof bytes must equal
+    the madd prove's; returns its seconds and regions."""
+    from simpleworks_tpu_torch import marlin
+    from simpleworks_tpu_torch.marlin.serialization import serialize_proof
+    from simpleworks_tpu_torch.ops import msm_pippenger
+    from simpleworks_tpu_torch.utils.observability import PROVER_TIMER
+
+    default = msm_pippenger.default_accum
+    msm_pippenger.default_accum = lambda device: "affine"
+    PROVER_TIMER.reset()
+    PROVER_TIMER.synchronize = True
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        proof = marlin.prove(pk, cs)
+        sync(device)
+        seconds = time.perf_counter() - t0
+    finally:
+        msm_pippenger.default_accum = default
+        PROVER_TIMER.synchronize = False
+    if serialize_proof(proof) != proof_bytes:
+        raise AssertionError("the affine-accumulate prove's bytes differ from the madd prove's")
+    return {"prove_warm_s": seconds, "prove_warm_regions": dict(PROVER_TIMER.totals),
+            "equal_bytes": True}
+
+
+@contextlib.contextmanager
+def pow_launches_by_caller(counts: dict):
+    """While the block runs, counts into ``counts`` the Fermat pow's launches
+    made inside dvec.inv, g1_limb.normalize_affine and g1_limb.affine_madd
+    (the affine accumulate's row)."""
+    from simpleworks_tpu_torch.fields import dvec
+    from simpleworks_tpu_torch.ops import _build, g1_limb
+
+    targets = {"dvec.inv": (dvec, "inv"),
+               "g1_limb.normalize_affine": (g1_limb, "normalize_affine"),
+               "g1_limb.affine_madd": (g1_limb, "affine_madd")}
+    saved = {key: getattr(mod, attr) for key, (mod, attr) in targets.items()}
+
+    def counting(key, fn):
+        def wrapper(*args, **kwargs):
+            before = _build.LAUNCHES["mont_pow"]
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                counts[key] += _build.LAUNCHES["mont_pow"] - before
+        return wrapper
+
+    for key, (mod, attr) in targets.items():
+        counts[key] = 0
+        setattr(mod, attr, counting(key, saved[key]))
+    try:
+        yield counts
+    finally:
+        for key, (mod, attr) in targets.items():
+            setattr(mod, attr, saved[key])
 
 
 def run_chain(device, steps: int = CHAIN_STEPS, sizes=CHAIN_SRS_SIZES) -> dict:
@@ -612,6 +768,23 @@ def bound_ms(name: str, shape, clock_mhz: float, exponent: int | None = None,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def accumulate_bound_ms(row: dict, clock_mhz: float) -> tuple[float, str]:
+    """The least time the card could take for the accumulate of ``row``
+    (check_accumulate): bytes, idx and valid of every cell, a 192-byte
+    table row of every valid cell, the three 96-byte output coordinates of
+    every lane (and as many in for a starting accumulator); operations, the
+    11 Fq multiplies of every valid cell and the doubling's 7 of every cell
+    that doubles, each 2 x 12^2 multiply-adds."""
+    lanes = row["shape"][1]
+    cells = row["depth"] * lanes
+    nbytes = 9 * cells + 192 * row["valid_cells"] + 288 * lanes * (2 if row["start"] else 1)
+    ops = 2 * 12 * 12 * (G1_MULS["g1_fused_madd"] * row["valid_cells"]
+                         + DOUBLE_MULS * row["double_cells"])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (SMS * IMAD_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def random_poly(width: int, seed: int, device):
     """[16, width] Montgomery limbs of seed-made Fr values (any value < p is
     a Montgomery representation)."""
@@ -725,6 +898,7 @@ def main(argv: list[str]) -> int:
               file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
+    reference = json.loads(REFERENCE_FIXTURE.read_text())
 
     print(smi("name,power.limit"), flush=True)
     clock_mhz = float(smi("clocks.max.sm").split()[0])
@@ -761,30 +935,69 @@ def main(argv: list[str]) -> int:
             raise AssertionError(f"kernels never launched on the {label} path: {idle}")
         return result
 
-    field_and_add = [*FIELD_KERNELS, "g1_fused_add"]
-    prover = [*FIELD_KERNELS, "ntt_reduce", "g1_fused_add"]
+    def drive_counting_pow(label, path, fn):
+        """drive(), with the Fermat pow's launches counted by caller: all of
+        them in dvec.inv and normalize_affine, none in an accumulate row."""
+        with pow_launches_by_caller({}) as counts:
+            result = drive(label, path, fn)
+        result["mont_pow_by_caller"] = counts
+        if counts["g1_limb.affine_madd"] or sum(counts.values()) != result["launches"]["mont_pow"]:
+            raise AssertionError(f"the {label} path ran the Fermat pow elsewhere than dvec.inv "
+                                 f"and normalize_affine: {counts}, {result['launches']}")
+        return result
+
+    def drive_affine_prove(fn, madd_run):
+        """drive() of the prove forced to the affine accumulate, which must
+        show that it took that route: no accumulate kernel, the pow in
+        affine_madd's rows, and more pows than the madd prove's."""
+        with pow_launches_by_caller({}) as counts:
+            result = drive("Marlin, affine accumulate", ["mont_pow"], fn)
+        result["mont_pow_by_caller"] = counts
+        launches = result["launches"]
+        if launches["g1_fused_madd"] or not counts["g1_limb.affine_madd"] \
+                or launches["mont_pow"] <= madd_run["launches"]["mont_pow"]:
+            raise AssertionError(f"the prove forced to the affine accumulate did not take it: "
+                                 f"{counts}, {launches}")
+        return result
+
+    # the KZG path: digits (mont_mul), the SRS's normalisation (mont_pow),
+    # the fixed-base powers and the bucket combine (add), the accumulate
+    kzg = ["mont_mul", "mont_pow", "g1_fused_add", "g1_fused_madd"]
+    prover = [*FIELD_KERNELS, "ntt_reduce", "g1_fused_add", "g1_fused_madd"]
     paths = {}
-    paths["kzg"] = drive("KZG", field_and_add, lambda: run_slice(device))
+    paths["kzg"] = drive_counting_pow("KZG", kzg, lambda: run_slice(device))
     emit({"kzg_slice": paths["kzg"]})
     paths["msm"] = drive("MSM", ["g1_fused_madd", "g1_fused_add"], lambda: run_msm(device))
     emit({"msm": paths["msm"]})
+    accumulate = check_accumulate(device)
+    emit({"accumulate_check": accumulate})
+    checks["g1_fused_madd"].append(accumulate)
     kzg10._SRS_MEMO.clear()  # the Marlin path's setup is timed, not read from the memo
-    paths["chain"] = drive("chain", prover, lambda: run_chain(device))
+    paths["chain"] = drive_counting_pow("chain", prover, lambda: run_chain(device))
     emit({"chain": paths["chain"]})
-    paths["marlin"] = drive("Marlin", prover, lambda: run_marlin(device))
+    kept: dict = {}
+    paths["marlin"] = drive_counting_pow(
+        "Marlin", prover, lambda: run_marlin(device, reference=reference, keep=kept))
     emit({"marlin": paths["marlin"]})
+    # the old default in the same call, outside the paths' counts
+    emit({"marlin_affine": drive_affine_prove(
+        lambda: run_affine_prove(device, kept["pk"], kept["cs"], kept["proof"]),
+        paths["marlin"])})
     emit({"pin": run_pin(device)})
 
     from simpleworks_tpu_torch.fields.device import FQ, FR
 
     kernels = []
     for name, rows in checks.items():
-        main_row = rows[-1]  # the Fq shape for the binary ops and point adds, the Fr pow
+        # the Fq shape for the binary ops and the add, the Fr pow, the group's
+        # accumulate
+        main_row = rows[-1]
         for row in rows:
             # the pow's exponent is the Fermat one of the row's field
             exponent = (FR if row["shape"][0] == 16 else FQ).p - 2 if name == "mont_pow" else None
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                name, row["shape"], clock_mhz, exponent, row.get("double_lanes", 0))
+            row["bound_ms"], row["bound_by"] = accumulate_bound_ms(row, clock_mhz) \
+                if "depth" in row else bound_ms(name, row["shape"], clock_mhz, exponent,
+                                                row.get("double_lanes", 0))
         by_path = {label: run["launches"][name] for label, run in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
@@ -794,7 +1007,8 @@ def main(argv: list[str]) -> int:
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"], "library_ms": None,
             "shape": main_row["shape"], "equal": all(r["equal"] for r in rows),
             "launches_by_path": by_path,
-            "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")} for r in rows],
+            "shapes": [{k: r[k] for k in ("shape", "depth", "ms", "plain_ms", "bound_ms") if k in r}
+                       for r in rows],
         })
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel launched on no path")

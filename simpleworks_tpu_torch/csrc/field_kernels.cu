@@ -15,10 +15,12 @@
 // What bounds them on the card: mont_mul over a wide batch is bound by
 // integer multiply-add throughput (2 N^2 64-bit products per multiply: 128
 // for Fr, 288 for Fq); mod_add and mod_sub do O(N) work per 8 L bytes moved
-// and are bound by memory bandwidth.  mont_pow runs where the batch is
-// narrow (the root of a batch inversion: a few thousand lanes), so it is
-// bound by the latency of its chain of dependent multiplies (754 for
-// e = q - 2); one-warp blocks spread it over as many SMs as it has warps.
+// and are bound by memory bandwidth.  mont_pow is the Fermat inverse of
+// dvec.inv (Fr, elementwise) and of the batch inversion's root in
+// g1_limb.normalize_affine (Fq, at most a few thousand lanes); each lane is
+// a chain of dependent multiplies (754 for e = q - 2), so a narrow batch is
+// bound by that chain's latency; one-warp blocks spread it over as many SMs
+// as it has warps.
 // The design keeps every intermediate in registers (no shared
 // memory), which is what the Pallas kernel's VMEM residency bought on the
 // TPU.

@@ -46,7 +46,7 @@ SIGNATURES = {
     },
     "g1_kernels": {
         "swt_g1_fused_add": [_P, _P, _I64, _P, ctypes.c_uint32, _P, _P],
-        "swt_g1_fused_madd": [_P, _P, _I64, _P, ctypes.c_uint32, _P, _P],
+        "swt_g1_madd_accumulate": [_P, _P, _P, _P, _I64, _I64, _P, _P, ctypes.c_uint32, _P, _P],
         "swt_g1_kernel_resources": [_P],
     },
 }

@@ -1,16 +1,20 @@
-"""Complete BLS12-377 G1 point adds in one launch: the two fused kernels of
+"""Complete BLS12-377 G1 point adds in one launch: the two kernels of
 ``csrc/g1_kernels.cu`` and their plain PyTorch versions.
 
-Port of ``simpleworks_tpu/ops/g1_fused_pallas.py``.  A point is a tuple of
-limb-major ``[24, B]`` ``torch.int32`` Fq Montgomery planes: Jacobian
-(X, Y, Z) with Z = 0 the identity, or affine (x, y) with x = y = 0 the
-identity.
+Port of ``simpleworks_tpu/ops/g1_fused_pallas.py`` and of the MSM's bucket
+accumulate scan around its mixed add.  A point is a tuple of limb-major
+``[24, B]`` ``torch.int32`` Fq Montgomery planes: Jacobian (X, Y, Z) with
+Z = 0 the identity, or affine (x, y) with x = y = 0 the identity.
 
 * :func:`fused_add` — Jacobian + Jacobian (add-2007-bl, 16 multiplies);
-* :func:`fused_madd` — Jacobian + affine (madd-2007-bl, 11 multiplies).
+* :func:`madd_accumulate` — a Jacobian accumulator per lane plus, row after
+  row, the affine table point that the row's index names where its flag
+  holds (madd-2007-bl, 11 multiplies an add): the MSM's whole bucket
+  accumulate of one group in one launch;
+* :func:`fused_madd` — Jacobian + affine, the one-row accumulate.
 
-Both are complete: the equal-x cases double (dbl-2009-l) or cancel, and the
-identities pass the other operand through, selected in the reference
+The adds are complete: the equal-x cases double (dbl-2009-l) or cancel, and
+the identities pass the other operand through, selected in the reference
 kernels' order.  On CUDA tensors each wrapper launches its kernel (one
 launch, counted in ``LAUNCHES``) or raises; on CPU tensors it runs its plain
 version, the same formula over the field kernels' plain versions, which
@@ -30,7 +34,11 @@ from .mont_mul import (
     _check, _on_cuda, _raise_on, mod_add_plain, mod_sub_plain, mont_mul_plain,
 )
 
-__all__ = ["fused_add", "fused_madd", "fused_add_plain", "fused_madd_plain"]
+__all__ = ["fused_add", "fused_madd", "madd_accumulate", "fused_add_plain", "fused_madd_plain",
+           "madd_accumulate_plain"]
+
+#: 16-bit limbs of an affine table row: x, then y
+ROW_LIMBS = 2 * FQ.n_limbs
 
 
 class PlainFq:
@@ -175,32 +183,91 @@ def fused_madd_plain(p3, q2):
     return madd_formula(p3, q2, PlainFq)
 
 
+def madd_accumulate_plain(acc3, rows, idx, valid):
+    """The plain version of :func:`madd_accumulate`, on any device: one
+    gather, mixed add and select a row."""
+    lanes = idx.shape[1]
+    acc = identity(lanes, rows.device) if acc3 is None else tuple(acc3)
+    for d in range(idx.shape[0]):
+        pts = rows.index_select(0, idx[d]).t().contiguous()  # [48, lanes]
+        added = fused_madd_plain(acc, (pts[: FQ.n_limbs], pts[FQ.n_limbs :]))
+        acc = select_point(valid[d], added, acc)
+    return acc
+
+
 # ------------------------------------------------------------------ wrappers --
 
 
-def _launch(name: str, symbol: str, planes) -> tuple:
+def _launch_add(planes) -> tuple:
     from ._build import library
 
-    fn = getattr(library("g1_kernels"), symbol)
     x = planes[0]
     B = x.shape[1]
     out = torch.empty((3, FQ.n_limbs, B), dtype=torch.int32, device=x.device)
     if B == 0:
         return out[0], out[1], out[2]
-    views = (ctypes.c_int64 * (3 * len(planes)))(
+    views = (ctypes.c_int64 * 18)(
         *[v for t in planes for v in (t.data_ptr(), t.stride(0), t.stride(1))])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(ctypes.addressof(views), out.data_ptr(), B, FQ.p_words_ptr, FQ.n0_32,
-                FQ.one_words_ptr, stream)
-    _raise_on(rc, name)
-    LAUNCHES[name] += 1
+        rc = library("g1_kernels").swt_g1_fused_add(
+            ctypes.addressof(views), out.data_ptr(), B, FQ.p_words_ptr, FQ.n0_32,
+            FQ.one_words_ptr, stream)
+    _raise_on(rc, "g1_fused_add")
+    LAUNCHES["g1_fused_add"] += 1
+    return out[0], out[1], out[2]
+
+
+def _check_accumulate(acc3, rows, idx, valid) -> None:
+    if rows.dtype != torch.int32 or rows.dim() != 2 or rows.shape[1] != ROW_LIMBS:
+        raise ValueError(f"expected an [n, {ROW_LIMBS}] int32 table of affine rows, got "
+                         f"{rows.dtype} {tuple(rows.shape)}")
+    if idx.dtype != torch.int64 or valid.dtype != torch.bool or idx.dim() != 2 \
+            or valid.shape != idx.shape:
+        raise ValueError(f"expected int64 idx and bool valid of one [D, lanes] shape, got "
+                         f"{idx.dtype} {tuple(idx.shape)} and {valid.dtype} {tuple(valid.shape)}")
+    devices = {t.device for t in (rows, idx, valid)}
+    if acc3 is not None:
+        if len(acc3) != 3:
+            raise ValueError("the starting accumulator is an (X, Y, Z) triple")
+        _check(FQ, *acc3)
+        if acc3[0].shape[1] != idx.shape[1]:
+            raise ValueError(f"accumulator of {acc3[0].shape[1]} lanes, grid of {idx.shape[1]}")
+        devices.add(acc3[0].device)
+    if len(devices) != 1:
+        raise ValueError(f"device mismatch: {sorted(map(str, devices))}")
+
+
+def _launch_accumulate(acc3, rows, idx, valid) -> tuple:
+    """One launch of the accumulate kernel (CUDA tensors)."""
+    from ._build import library
+
+    if not (rows.is_contiguous() and idx.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("the table, idx and valid must be contiguous")
+    if rows.data_ptr() % 16:
+        raise ValueError("the table's rows are read as 16-byte vectors: 16-byte align it")
+    depth, lanes = idx.shape
+    out = torch.empty((3, FQ.n_limbs, lanes), dtype=torch.int32, device=rows.device)
+    if lanes == 0:
+        return out[0], out[1], out[2]
+    views = None
+    if acc3 is not None:
+        views = (ctypes.c_int64 * 9)(
+            *[v for t in acc3 for v in (t.data_ptr(), t.stride(0), t.stride(1))])
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        rc = library("g1_kernels").swt_g1_madd_accumulate(
+            None if views is None else ctypes.addressof(views), rows.data_ptr(), idx.data_ptr(),
+            valid.data_ptr(), depth, lanes, out.data_ptr(), FQ.p_words_ptr, FQ.n0_32,
+            FQ.one_words_ptr, stream)
+    _raise_on(rc, "g1_fused_madd")
+    LAUNCHES["g1_fused_madd"] += 1
     return out[0], out[1], out[2]
 
 
 def kernel_resources() -> dict:
-    """Registers and local (spill) bytes a thread of each fused kernel, as
-    the card's compiler built them."""
+    """Registers and local (spill) bytes a thread of each kernel, as the
+    card's compiler built them."""
     from ._build import library
 
     out = (ctypes.c_int * 4)()
@@ -218,16 +285,35 @@ def fused_add(p3, q3):
     _check(FQ, *planes)
     if not _on_cuda(planes[0]):
         return fused_add_plain(p3, q3)
-    return _launch("g1_fused_add", "swt_g1_fused_add", planes)
+    return _launch_add(planes)
+
+
+def madd_accumulate(acc3, rows, idx, valid):
+    """The bucket accumulate of one MSM group: lane j starts from ``acc3``
+    (([24, lanes],)*3 Jacobian planes; None is the identity) and adds, for
+    each row d in order, the affine table row ``rows[idx[d, j]]`` where
+    ``valid[d, j]`` holds.  ``rows``: [n, 48] int32 (x limbs, then y limbs);
+    ``idx``: [D, lanes] int64, each entry a row of the table (the kernel
+    reads it unchecked); ``valid``: [D, lanes] bool.  One kernel launch on
+    CUDA tensors."""
+    _check_accumulate(acc3, rows, idx, valid)
+    if not _on_cuda(rows):
+        return madd_accumulate_plain(acc3, rows, idx, valid)
+    return _launch_accumulate(acc3, rows, idx, valid)
 
 
 def fused_madd(p3, q2):
     """Complete mixed addition of Jacobian ([24, B],)*3 p3 and affine
-    ([24, B],)*2 q2 (x = y = 0 the identity)."""
+    ([24, B],)*2 q2 (x = y = 0 the identity): the one-row accumulate, with
+    q2 as a row-major table and every lane adding its own row."""
     planes = (*p3, *q2)
     if len(planes) != 5:
         raise ValueError("fused_madd takes an (X, Y, Z) triple and an (x, y) pair")
     _check(FQ, *planes)
     if not _on_cuda(planes[0]):
         return fused_madd_plain(p3, q2)
-    return _launch("g1_fused_madd", "swt_g1_fused_madd", planes)
+    B = planes[0].shape[1]
+    rows = torch.cat(q2).t().contiguous()  # [B, 48]
+    idx = torch.arange(B, device=rows.device).reshape(1, B)
+    valid = torch.ones((1, B), dtype=torch.bool, device=rows.device)
+    return madd_accumulate(p3, rows, idx, valid)

@@ -12,12 +12,14 @@ Port of the default device route of ``simpleworks_tpu/ops/msm_pippenger.py``
    a ``[D, g·S·B]`` gather grid, built on the device from an argsort of its
    digits (column w·S·B + s·B + d lists the points whose window-w digit is
    d; digit 0 has weight 0 and owns no entries).
-3. **Accumulate**: a Python loop over the D grid rows; each row gathers an
-   affine point batch (X, Y only: the SRS is normalised to Z = 1) and does
-   one complete batch-affine add (``g1_limb.affine_madd``, ~25 field-kernel
-   launches and one Fermat pow a row; the default on CUDA, as on the TPU) or
-   Jacobian mixed add (``"madd"``: one launch of the fused mixed-add kernel
-   a row on CUDA; the CPU default).
+3. **Accumulate**: each group's D grid rows gather affine points (X, Y
+   only: the SRS is normalised to Z = 1) into per-lane bucket sums.  The
+   default is the Jacobian mixed add (``"madd"``): on CUDA one launch of the
+   accumulate kernel a group runs all D rows with the sums in registers
+   (``g1_fused.madd_accumulate``).  ``"affine"`` is a Python loop over the
+   rows, each one complete batch-affine add (``g1_limb.affine_madd``, ~25
+   field-kernel launches and one Fermat pow a row), the reference's TPU
+   default, kept as an option and as the oracle.
 4. **Bucket combine**: segment fold, then Σ_d d·S_d per window by two
    inclusive suffix passes over the bucket axis, each step one launch of the
    fused Jacobian add kernel on CUDA (``g1_limb.add``).
@@ -32,22 +34,25 @@ import torch
 
 from ..curves.bls12_377 import G1Point
 from ..fields import dvec
-from . import g1_limb
+from . import g1_fused, g1_limb
 
 SCALAR_BITS = 256
 
 def target_lanes(device: torch.device) -> int:
-    """Grid-row width target.  On the card a wide row amortises each row's
-    ~100 kernel launches; on the CPU every lane costs the same, so rows stay
-    narrow and padding lanes are avoided."""
+    """Grid-row width target: the lanes a group's segments are split into.
+    On the card a lane is one thread of the accumulate kernel, so a narrow
+    group fills the SMs only once it is split into enough lanes; on the CPU
+    every lane costs the same, so rows stay narrow and padding lanes are
+    avoided."""
     return 32768 if device.type == "cuda" else 1024
 
 
 def default_accum(device: torch.device) -> str:
-    """Batch-affine accumulate on CUDA; the Jacobian mixed add elsewhere (on
-    the CPU every row's Fermat inversion runs through the plain int64 kernel
-    twin, which is slow and buys nothing there)."""
-    return "affine" if device.type == "cuda" else "madd"
+    """The Jacobian mixed add on every device: it needs no inversion, and
+    on the card one kernel launch runs a group's whole accumulate.  The
+    commitments are group elements, so the choice cannot change a proof's
+    bytes."""
+    return "madd"
 
 
 def window_digits(scalars_std: np.ndarray, c: int) -> np.ndarray:
@@ -146,9 +151,10 @@ def accumulate_windows(points_xy: torch.Tensor, idx: torch.Tensor, valid: torch.
     """(points_xy [2, 24, n] affine planes, idx/valid [D, W·S·B]) -> ([24, W],)*3
     Jacobian window sums Σ_d d·S_d.
 
-    ``accum``: ``"affine"`` keeps the accumulator affine and does batch-affine
-    adds (~4 muls plus a shared batched inversion a row); ``"madd"`` does the
-    11-mul Jacobian mixed add (one fused kernel launch a row on CUDA)."""
+    ``accum``: ``"madd"`` does the 11-mul Jacobian mixed add, all D rows in
+    one accumulate-kernel launch on CUDA; ``"affine"`` keeps the accumulator
+    affine and does batch-affine adds (~4 muls plus a shared batched
+    inversion a row, a Python loop over the rows)."""
     dev = points_xy.device
     if accum is None:
         accum = default_accum(dev)
@@ -156,21 +162,15 @@ def accumulate_windows(points_xy: torch.Tensor, idx: torch.Tensor, valid: torch.
     # row-major copy: one gather fetches a point's 48 limbs together
     rows = points_xy.reshape(2 * 24, -1).t().contiguous()  # [n, 48]
 
-    def gather(d):
-        pts = rows.index_select(0, idx[d]).t().contiguous()  # [48, lanes]
-        return pts[:24], pts[24:]
-
-    if accum == "affine":
+    if accum == "madd":
+        acc = g1_fused.madd_accumulate(None, rows, idx, valid)
+    elif accum == "affine":
         zero = torch.zeros((24, lanes), dtype=torch.int32, device=dev)
         acc2 = (zero, zero)  # the affine identity
         for d in range(idx.shape[0]):
-            acc2 = g1_limb.affine_madd(acc2, gather(d), valid[d])
+            pts = rows.index_select(0, idx[d]).t().contiguous()  # [48, lanes]
+            acc2 = g1_limb.affine_madd(acc2, (pts[:24], pts[24:]), valid[d])
         acc = g1_limb.affine_to_jacobian(acc2)
-    elif accum == "madd":
-        acc = g1_limb.identity(lanes, dev)
-        for d in range(idx.shape[0]):
-            added = g1_limb.madd(acc, gather(d))
-            acc = g1_limb.select_point(valid[d], added, acc)
     else:
         raise ValueError(f"unknown accumulate mode {accum!r}")
 

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (the field kernels, the NTT's reduce kernel and
-the fused G1 point adds) against their plain PyTorch versions, on the card
-(exact equality: field arithmetic is exact).
+"""The port's CUDA kernels (the field kernels, the NTT's reduce kernel, the
+fused G1 point add and the MSM's bucket accumulate) against their plain
+PyTorch versions, on the card (exact equality: field arithmetic is exact).
 
 Skips without a CUDA device.  On a machine with one:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
@@ -171,6 +171,66 @@ def test_fused_point_adds_reject_bad_inputs(cuda):
         g1_fused.fused_madd(p3, q3[:1])
     with pytest.raises(ValueError):
         g1_fused.fused_madd(p3, (q3[0][:16], q3[1][:16]))
+
+
+def accumulate_grid(n, depth, seed, device):
+    """g1_inputs of n lanes, the q2 of every lane as an n-row table, and a
+    [depth, n] grid whose row 0 adds each lane's own q (the lane cases
+    against p3) and whose later rows add seed-made rows, 4 cells in 5 valid."""
+    from chip_smoke import g1_inputs
+
+    ins = g1_inputs(n, seed, device)
+    rows = torch.cat(ins["q2"]).t().contiguous()
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.integers(0, n, size=(depth, n))).to(device)
+    valid = torch.from_numpy(rng.random((depth, n)) < 0.8).to(device)
+    idx[0] = torch.arange(n, device=device)
+    valid[0] = True
+    return ins, rows, idx, valid
+
+
+@pytest.mark.parametrize("depth", [1, 5])
+@pytest.mark.parametrize("n", [1, 257, 5000])
+def test_madd_accumulate_matches_plain(cuda, depth, n):
+    """The accumulate kernel, from the identity and from a start, one launch
+    counted per call."""
+    from simpleworks_tpu_torch.ops import g1_fused
+
+    ins, rows, idx, valid = accumulate_grid(n, depth, 14 + depth, cuda)
+    for acc in (None, ins["p3"]):
+        expected = g1_fused.madd_accumulate_plain(acc, rows, idx, valid)
+        before = mm.LAUNCHES["g1_fused_madd"]
+        got = g1_fused.madd_accumulate(acc, rows, idx, valid)
+        torch.cuda.synchronize()
+        assert mm.LAUNCHES["g1_fused_madd"] == before + 1
+        assert all(map(torch.equal, got, expected))
+
+
+def test_madd_accumulate_reads_a_strided_start(cuda):
+    """A starting accumulator of sliced views (row stride 2n) and of
+    transposed copies (row stride 1, column stride 24)."""
+    from simpleworks_tpu_torch.ops import g1_fused
+
+    n = 300
+    ins, rows, idx, valid = accumulate_grid(n, 4, 17, cuda)
+    expected = g1_fused.madd_accumulate_plain(ins["p3"], rows, idx, valid)
+    sliced = tuple(torch.cat([a, a], dim=1)[:, n:] for a in ins["p3"])
+    transposed = tuple(a.t().contiguous().t() for a in ins["p3"])
+    for start in (sliced, transposed):
+        assert all(map(torch.equal, g1_fused.madd_accumulate(start, rows, idx, valid), expected))
+
+
+def test_madd_accumulate_rejects_bad_inputs(cuda):
+    from simpleworks_tpu_torch.ops import g1_fused
+
+    ins, rows, idx, valid = accumulate_grid(8, 2, 18, cuda)
+    with pytest.raises(ValueError):  # not contiguous
+        g1_fused.madd_accumulate(None, rows, idx.t().contiguous().t(), valid)
+    with pytest.raises(ValueError):  # the rows not 16-byte aligned
+        flat = torch.empty(8 * 48 + 1, dtype=torch.int32, device=cuda)
+        g1_fused.madd_accumulate(None, flat[1:].view(8, 48), idx, valid)
+    with pytest.raises(ValueError):  # a CPU grid for a card table
+        g1_fused.madd_accumulate(None, rows, idx.cpu(), valid.cpu())
 
 
 def test_default_device_is_the_card(cuda):

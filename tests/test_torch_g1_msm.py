@@ -1,11 +1,16 @@
 """The port's G1 layer held against the JAX package on the same inputs: host
 curve serde and pairing, limb-major point arithmetic
-(simpleworks_tpu_torch.ops.g1_limb), the device Pippenger MSM
-(ops.msm_pippenger) and the fixed-base SRS powers (ops.srs_device).  Limb
-tensors are compared value for value and group elements exactly.
+(simpleworks_tpu_torch.ops.g1_limb), the MSM's bucket accumulate
+(ops.g1_fused.madd_accumulate, whose CUDA kernel runs a group's whole scan
+in one launch), the device Pippenger MSM (ops.msm_pippenger) and the
+fixed-base SRS powers (ops.srs_device).  Limb tensors are compared value
+for value and group elements exactly.
 
 The reference's limb-major point ops run jitted on the CPU (their XLA
-Montgomery multiply), which is the JAX package's own CPU route."""
+Montgomery multiply), which is the JAX package's own CPU route.  Its mixed
+add is compiled once, at 64 lanes, for the madd test and the accumulate's
+scan steps; the reference's whole accumulate program is not compiled here
+(tens of seconds)."""
 
 import jax
 import jax.numpy as jnp
@@ -26,13 +31,17 @@ from simpleworks_tpu_torch.fields.device import (
     FQ, FR, from_mont, from_reference_limbs, ints_to_limbs, to_mont, to_reference_limbs,
 )
 from simpleworks_tpu_torch.kzg.msm import msm
-from simpleworks_tpu_torch.ops import g1_limb, msm_pippenger, srs_device
+from simpleworks_tpu_torch.ops import g1_fused, g1_limb, msm_pippenger, srs_device
 
 CPU = torch.device("cpu")
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
 rng = np.random.default_rng(33)
 G = G1Point.generator()
+#: the reference's mixed add, compiled once for the LANES-wide tests below
+REF_MADD = jax.jit(ref_g1.madd)
+LANES = 64
+DEPTH = 3
 
 
 def rand_scalars(n):
@@ -103,11 +112,11 @@ def test_add_and_double_match_reference():
 
 
 def test_madd_matches_reference():
-    cases = edge_cases()
+    cases = (edge_cases() * LANES)[:LANES]
     p = g1_limb.points_to_limb_major([a for a, _ in cases], CPU)
     q2 = g1_limb.points_to_limb_major_affine([b for _, b in cases], CPU)[:2]
     got = g1_limb.madd(p, q2)
-    assert same_planes(got, jax.jit(ref_g1.madd)(ref_planes(p), ref_planes(q2)))
+    assert same_planes(got, REF_MADD(ref_planes(p), ref_planes(q2)))
     assert g1_limb.points_from_limb_major(got) == [a.add(b) for a, b in cases]
 
 
@@ -135,6 +144,97 @@ def test_batch_inverse_matches_reference():
     # the halves of a strided view are strided views: same inverses
     wide = to_mont(vals[:12] * 2, FQ, CPU)
     assert torch.equal(g1_limb.FqLimb(base=2).batch_inverse(wide[:, 12:]), got[:, :12])
+
+
+def table_rows(points):
+    """Host points -> the [n, 48] int32 affine table the accumulate reads."""
+    x, y, _ = g1_limb.points_to_limb_major_affine(points, CPU)
+    return torch.cat([x, y]).t().contiguous()
+
+
+@pytest.fixture(scope="module")
+def accumulate_grid():
+    """A table of 8 points (row 7 the identity) and a [3, 64] grid with
+    invalid cells, a repeated index (a doubling: lane 0 adds P twice), P then
+    -P (lane 1), the identity row (lane 2), and seed-made cells elsewhere."""
+    pts = [G.scalar_mul(11 * k + 2) for k in range(6)]
+    pts = pts + [pts[0].neg(), G1Point.identity()]
+    rng = np.random.default_rng(5)
+    idx = rng.integers(0, len(pts), size=(DEPTH, LANES))
+    valid = rng.random((DEPTH, LANES)) < 0.75
+    idx[:, 0], valid[:, 0] = [0, 0, 3], True
+    idx[:, 1], valid[:, 1] = [0, 6, 2], True
+    idx[:, 2], valid[:, 2] = [7, 1, 7], True
+    idx[:, 3], valid[:, 3] = [4, 5, 1], [False, True, False]
+    return pts, table_rows(pts), torch.from_numpy(idx), torch.from_numpy(valid)
+
+
+def reference_scan(rows, idx, valid, acc=None):
+    """The reference's scan step (gather, madd, select), one row at a time."""
+    ref_rows = jnp.asarray(to_reference_limbs(rows.t().contiguous()).T)  # [n, 48] uint32
+    acc = ref_g1.identity(idx.shape[1]) if acc is None else acc
+    for d in range(idx.shape[0]):
+        pts2 = jnp.take(ref_rows, jnp.asarray(idx[d].numpy()), axis=0).T.reshape(2, 24, -1)
+        added = REF_MADD(acc, (pts2[0], pts2[1]))
+        acc = ref_g1.select_point(jnp.asarray(valid[d].numpy()), added, acc)
+    return acc
+
+
+def test_accumulate_plain_matches_reference_scan(accumulate_grid):
+    pts, rows, idx, valid = accumulate_grid
+    got = g1_fused.madd_accumulate_plain(None, rows, idx, valid)
+    expected = reference_scan(rows, idx, valid)
+    assert all(torch.equal(a, from_reference_limbs(np.asarray(b), CPU))
+               for a, b in zip(got, expected))
+    sums = g1_limb.points_from_limb_major(got)
+    for j in range(LANES):
+        total = G1Point.identity()
+        for d in range(DEPTH):
+            if valid[d, j]:
+                total = total.add(pts[idx[d, j]])
+        assert sums[j] == total, j
+    assert sums[0] == pts[0].double().add(pts[3]) and sums[1] == pts[2]
+    assert sums[2] == pts[1] and sums[3] == pts[5]
+
+
+def test_accumulate_from_a_start_is_the_mixed_add_at_depth_one(accumulate_grid):
+    _, rows, idx, valid = accumulate_grid
+    start = g1_fused.madd_accumulate_plain(None, rows, idx[:2], valid[:2])
+    q2 = tuple(a.t().contiguous() for a in rows.index_select(0, idx[2]).split(24, dim=1))
+    expected = g1_limb.madd(start, q2)
+    ones = torch.ones((1, LANES), dtype=torch.bool)
+    got = g1_fused.madd_accumulate_plain(start, rows, idx[2:], ones)
+    assert all(map(torch.equal, got, expected))
+    # the wrapper on CPU tensors is the plain version, and counts no launch
+    before = dict(g1_fused.LAUNCHES)
+    assert all(map(torch.equal, g1_fused.madd_accumulate(start, rows, idx[2:], ones), expected))
+    assert all(map(torch.equal, g1_fused.fused_madd(start, q2), expected))
+    assert g1_fused.LAUNCHES == before
+    # two rows then the third from their sum: the three-row scan
+    whole = g1_fused.madd_accumulate_plain(None, rows, idx, valid)
+    resumed = g1_fused.madd_accumulate_plain(start, rows, idx[2:], valid[2:])
+    assert all(map(torch.equal, whole, resumed))
+
+
+@pytest.mark.parametrize("bad", ["table_width", "idx_dtype", "valid_shape", "acc_lanes"])
+def test_accumulate_rejects_bad_inputs(accumulate_grid, bad):
+    _, rows, idx, valid = accumulate_grid
+    acc = None
+    if bad == "table_width":
+        rows = rows[:, :24]
+    elif bad == "idx_dtype":
+        idx = idx.to(torch.int32)
+    elif bad == "valid_shape":
+        valid = valid[:, :5]
+    else:
+        acc = g1_limb.identity(LANES - 1, CPU)
+    with pytest.raises(ValueError):
+        g1_fused.madd_accumulate(acc, rows, idx, valid)
+
+
+def test_default_accumulate_is_madd_on_every_device():
+    assert msm_pippenger.default_accum(torch.device("cuda")) == "madd"
+    assert msm_pippenger.default_accum(CPU) == "madd"
 
 
 @pytest.fixture(scope="module")
