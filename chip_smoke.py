@@ -129,13 +129,22 @@ REFERENCE_FIXTURE = Path(__file__).resolve().parent / "tests" / "torch_fixtures"
 #: the accumulate check: the c = 13 group of a 2^20-point MSM
 ACCUMULATE_LOG = 20
 ACCUMULATE_C = 13
+#: the combine check: every group of the 2^17-point MSM at the window bits
+#: the MSM picks (c = 8), and the accumulate check's group
+COMBINE_LOG = 17
+#: the Fr widths of the prove's two dvec.inv (marlin/prover.py): the pow
+#: timed there, and checked against its plain version on a slice as wide as
+#: POW_SLICE (the plain pow takes ~0.8 s at that width)
+POW_PROVE_LANES = (655_360, 786_432)
+POW_SLICE = 1 << 14
 
 FIELD_SOURCE = "simpleworks_tpu_torch/csrc/field_kernels.cu"
 NTT_SOURCE = "simpleworks_tpu_torch/csrc/ntt_kernels.cu"
 G1_SOURCE = "simpleworks_tpu_torch/csrc/g1_kernels.cu"
 SOURCES = {"mont_mul": FIELD_SOURCE, "mod_add": FIELD_SOURCE, "mod_sub": FIELD_SOURCE,
            "mont_pow": FIELD_SOURCE, "ntt_reduce": NTT_SOURCE,
-           "g1_fused_add": G1_SOURCE, "g1_fused_madd": G1_SOURCE}
+           "g1_fused_add": G1_SOURCE, "g1_fused_madd": G1_SOURCE,
+           "g1_bucket_combine": G1_SOURCE}
 REPLACES = {
     "mont_mul": "simpleworks_tpu/ops/mont_mul_pallas.py:105",
     "mod_add": "simpleworks_tpu/ops/mont_mul_pallas.py:130",
@@ -144,13 +153,16 @@ REPLACES = {
     "ntt_reduce": "simpleworks_tpu/ops/ntt_mxu.py:95",
     "g1_fused_add": "simpleworks_tpu/ops/g1_fused_pallas.py:112",
     "g1_fused_madd": "simpleworks_tpu/ops/g1_fused_pallas.py:255",
+    # the add kernel, run by the fold and the two suffix passes of
+    # simpleworks_tpu/ops/msm_pippenger.py:262-284
+    "g1_bucket_combine": "simpleworks_tpu/ops/g1_fused_pallas.py:112",
 }
 #: the kernels that compute in the field alone (check_kernels)
 FIELD_KERNELS = ("mont_mul", "mod_add", "mod_sub", "mont_pow")
 #: Fq multiplies of one lane of each point add (or of one valid cell of the
-#: accumulate): the general formula, and the doubling that only the lanes
-#: needing it run
-G1_MULS = {"g1_fused_add": 16, "g1_fused_madd": 11}
+#: accumulate, or of one lane of a combine step that runs the add): the
+#: general formula, and the doubling that only the lanes needing it run
+G1_MULS = {"g1_fused_add": 16, "g1_fused_madd": 11, "g1_bucket_combine": 16}
 DOUBLE_MULS = 7
 #: the lane cases of the G1 point-add checks (g1_inputs)
 G1_CASES = ("general", "p_identity", "q_identity", "both_identity", "double", "opposite")
@@ -280,9 +292,10 @@ def g1_inputs(n: int, seed: int, device, pool: int = 16) -> dict:
 
 
 def check_kernels(device, fr_lanes: int = FR_LANES, fq_lanes: int = FQ_LANES,
-                  pow_shapes=None) -> dict:
+                  pow_shapes=None, pow_prove_lanes=POW_PROVE_LANES) -> dict:
     """Each kernel against its plain version on the same inputs: exact
-    equality, and both times."""
+    equality, and both times; the pow also at the prove's widths, checked
+    on a slice."""
     import torch
 
     from simpleworks_tpu_torch.fields.device import FQ, FR
@@ -316,6 +329,22 @@ def check_kernels(device, fr_lanes: int = FR_LANES, fq_lanes: int = FQ_LANES,
         record("mont_pow", x.shape, got, ref,
                time_ms(lambda: mm.mont_pow(x, e, field), device, inner=5, queue_ahead=True),
                time_ms(lambda: mm.mont_pow_plain(x, e, field), device, reps=3))
+    for lanes in pow_prove_lanes:
+        # the prove's dvec.inv widths: the plain version checks (and is timed
+        # on, one run) a slice of the lanes
+        x = field_inputs(FR, lanes, 4, device)
+        e = FR.p - 2
+        got = mm.mont_pow(x, e, FR)
+        sync(device)
+        t0 = time.perf_counter()
+        ref = mm.mont_pow_plain(x[:, :POW_SLICE], e, FR)
+        sync(device)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        record("mont_pow", x.shape, got[:, :POW_SLICE], ref,
+               time_ms(lambda: mm.mont_pow(x, e, FR), device, inner=3, queue_ahead=True),
+               plain_ms)
+        results["mont_pow"][-1]["plain_shape"] = list(ref.shape)
+        del x, got
     for name, rows in results.items():
         for row in rows:
             if not row["equal"]:
@@ -366,12 +395,13 @@ def check_g1(device, widths=G1_LANES) -> dict:
 
 
 def check_accumulate(device, log_n: int = ACCUMULATE_LOG, c: int = ACCUMULATE_C,
-                     max_degree: int = MAX_DEGREE) -> dict:
+                     max_degree: int = MAX_DEGREE, keep: list | None = None) -> dict:
     """The bucket-accumulate kernel at the widest group of the MSM path's
     2^log_n-point MSM (window bits c) over the KZG path's SRS, at the
     group's real depth: the kernel against the plain version (exact),
     timed, with its registers and spills.  Its launches here are checks,
-    outside every path's counts."""
+    outside every path's counts.  ``keep`` receives the group's bucket sums
+    for check_combine."""
     import torch
 
     from simpleworks_tpu_torch.kzg import kzg10
@@ -401,6 +431,8 @@ def check_accumulate(device, log_n: int = ACCUMULATE_LOG, c: int = ACCUMULATE_C,
     if not all(map(torch.equal, got, expected)):
         raise AssertionError(f"the accumulate kernel disagrees with its plain version "
                              f"(max abs err {err})")
+    if keep is not None:
+        keep.append((f"2^{log_n}, c = {c}", got, len(window_ids), segs, b_g))
     del got
     # each lane sums distinct SRS powers tau^i G, so no accumulator equals the
     # point it adds (that would be a relation among the powers): no cell doubles
@@ -411,6 +443,135 @@ def check_accumulate(device, log_n: int = ACCUMULATE_LOG, c: int = ACCUMULATE_C,
             "ms": time_ms(lambda: g1_fused.madd_accumulate(None, rows, idx, valid), device,
                           reps=3, inner=3),
             "plain_ms": plain_ms}
+
+
+def combine_work(acc3, w_count: int, segs: int, b: int) -> dict:
+    """The combine's work on this data.  What the function needs, which the
+    bound counts: of the (S − 1)·b fold adds of each window those whose
+    operands are both points (an identity operand needs no arithmetic), and
+    the 2(b − 2) adds of the running sums R_d = R_{d+1} + S_d and T = T + R_d
+    that give Σ_d d·S_d (each counted, beside an empty bucket too); of those, the fold lanes whose H = r = 0 also double
+    (a running sum of the SRS's bucket sums never meets its own operand:
+    that would be a relation among the powers of tau, so none doubles).
+    What the kernel's step-doubling scan runs, reported beside it: every
+    fold lane and every suffix lane whose operand lies inside its window,
+    and those of them whose H = r = 0 run the doubling.  One run of the
+    per-step route that evaluates H and r (through the field kernels)
+    beside each add."""
+    import torch
+
+    from simpleworks_tpu_torch.ops import g1_fused, g1_limb
+
+    f = g1_limb._F
+    log_b = b.bit_length() - 1
+    shifts = iter([None] * (segs.bit_length() - 1) + [1 << i for _ in range(2)
+                                                       for i in range(log_b)])
+    work = {"fold_lanes": 0, "fold_double_lanes": 0, "kernel_add_lanes": 0,
+            "kernel_double_lanes": 0}
+
+    def add(p, q):
+        k = next(shifts)
+        (X1, Y1, Z1), (X2, Y2, Z2) = p, q
+        z1z1, z2z2 = f.mul(Z1, Z1), f.mul(Z2, Z2)
+        h = f.sub(f.mul(X2, z1z1), f.mul(X1, z2z2))
+        r = f.sub(f.mul(f.mul(Y2, Z1), z1z1), f.mul(f.mul(Y1, Z2), z2z2))
+        lane = torch.arange(X1.shape[1], device=X1.device)
+        inside = torch.ones_like(lane, dtype=torch.bool) if k is None else lane % b + k < b
+        doubles = inside & (h == 0).all(0) & (r == 0).all(0)
+        work["kernel_add_lanes"] += int(inside.sum())
+        work["kernel_double_lanes"] += int(doubles.sum())
+        if k is None:
+            points = (Z1 != 0).any(0) & (Z2 != 0).any(0)
+            work["fold_lanes"] += int(points.sum())
+            work["fold_double_lanes"] += int((doubles & points).sum())
+        return g1_fused.fused_add(p, q)
+
+    g1_fused.bucket_combine_plain(acc3, w_count, segs, b, add=add)
+    return {"add_lanes": work["fold_lanes"] + w_count * 2 * (b - 2),
+            "double_lanes": work["fold_double_lanes"],
+            "kernel_add_lanes": work["kernel_add_lanes"],
+            "kernel_double_lanes": work["kernel_double_lanes"]}
+
+
+def window_sums_host(acc3, w: int, segs: int, b: int):
+    """Σ_d d·S_d of window w by the host point law, from the bucket sums
+    (lane w·S·b + s·b + d of acc3)."""
+    from simpleworks_tpu_torch.curves.bls12_377 import G1Point
+    from simpleworks_tpu_torch.ops import g1_limb
+
+    lo = w * segs * b
+    pts = g1_limb.points_from_limb_major(tuple(a[:, lo : lo + segs * b] for a in acc3))
+    buckets = [G1Point.identity()] * b
+    for i, pt in enumerate(pts):
+        buckets[i % b] = buckets[i % b].add(pt)
+    running, total = G1Point.identity(), G1Point.identity()
+    for d in range(b - 1, 0, -1):
+        running = running.add(buckets[d])
+        total = total.add(running)
+    return total
+
+
+def check_combine(device, accumulated=(), log_n: int = COMBINE_LOG,
+                  max_degree: int = MAX_DEGREE) -> list:
+    """The bucket-combine kernel on every group of the MSM path's
+    2^log_n-point MSM (its bucket sums from the accumulate kernel) and on
+    the groups of ``accumulated`` (check_accumulate's ``keep``): equal to
+    the plain version and to the per-step route (one fused-add launch a
+    step, bucket_combine_plain with g1_fused.fused_add), exactly, and the
+    first and last windows equal to the host point law; the three timed.
+    Launches here are checks, outside every path's counts."""
+    import torch
+
+    from simpleworks_tpu_torch.kzg import kzg10
+    from simpleworks_tpu_torch.ops import g1_fused, g1_limb
+    from simpleworks_tpu_torch.ops import msm_pippenger as mp
+    from simpleworks_tpu_torch.utils.rng import test_rng
+
+    srs = kzg10.setup(max_degree, test_rng(), device=device)
+    rows = srs.powers_xy.reshape(48, -1).t().contiguous()
+    coeffs = random_poly(1 << log_n, 100 + log_n, device)  # run_msm's coefficients
+    c = mp._auto_window_bits(1 << log_n)
+    digits, stats = mp.mont_digits(coeffs, c)
+    metas = mp._meta_from_stats(
+        [(w, int(o), max(int(m), 1)) for w, (o, m) in enumerate(stats.tolist())],
+        mp.target_lanes(device))
+    groups = []
+    for window_ids, segs, b_g, depth in metas:
+        ids = torch.tensor(window_ids, dtype=torch.int64, device=device)
+        idx, valid = mp.device_grid_from_digits(digits.index_select(0, ids), depth, segs, b_g, 0)
+        groups.append((f"2^{log_n}, c = {c}", g1_fused.madd_accumulate(None, rows, idx, valid),
+                       len(window_ids), segs, b_g))
+    del rows, idx, valid
+    groups += list(accumulated)
+    resources = g1_fused.kernel_resources()["g1_bucket_combine"] if device.type == "cuda" else {}
+    results = []
+    for label, acc, w, segs, b in groups:
+        got = g1_fused.bucket_combine(acc, w, segs, b)
+        sync(device)
+        t0 = time.perf_counter()
+        expected = g1_fused.bucket_combine_plain(acc, w, segs, b)
+        sync(device)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        route = g1_fused.bucket_combine_plain(acc, w, segs, b, add=g1_fused.fused_add)
+        err = max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+                  for x, y in zip(got, expected))
+        if not (all(map(torch.equal, got, expected)) and all(map(torch.equal, got, route))):
+            raise AssertionError(f"the combine kernel disagrees at {label}, W = {w}, S = {segs}, "
+                                 f"b = {b} (max abs err against plain {err})")
+        sums = g1_limb.points_from_limb_major(got)
+        for win in sorted({0, w - 1}):
+            if sums[win] != window_sums_host(acc, win, segs, b):
+                raise AssertionError(f"the combine's window {win} at {label} differs from the "
+                                     f"host point law")
+        row = {"msm": label, "shape": [24, acc[0].shape[1]], "windows": w, "segments": segs,
+               "buckets": b, **combine_work(acc, w, segs, b), **resources, "equal": True,
+               "route_equal": True, "max_abs_err": err, "plain_ms": plain_ms,
+               "route_ms": time_ms(lambda: g1_fused.bucket_combine_plain(
+                   acc, w, segs, b, add=g1_fused.fused_add), device),
+               "ms": time_ms(lambda: g1_fused.bucket_combine(acc, w, segs, b), device, inner=3,
+                             queue_ahead=True)}
+        results.append(row)
+    return results
 
 
 def check_ntt(device, log_n: int = NTT_LOG, oracle_log: int = ORACLE_LOG) -> dict:
@@ -512,6 +673,7 @@ def run_marlin(device, build=schnorr_circuit, public=(), sizes=SRS_SIZES, refere
     from simpleworks_tpu_torch.fields.bls12_377 import FR_MODULUS
     from simpleworks_tpu_torch.marlin import ahp
     from simpleworks_tpu_torch.marlin.serialization import serialize_proof, serialize_verifying_key
+    from simpleworks_tpu_torch.ops._build import LAUNCHES
     from simpleworks_tpu_torch.utils.observability import PROVER_TIMER
 
     steps_s: dict[str, float] = {}
@@ -540,7 +702,9 @@ def run_marlin(device, build=schnorr_circuit, public=(), sizes=SRS_SIZES, refere
              "constraints": info.num_constraints, "non_zero": info.num_non_zero}
     proof_cold = timed("prove_cold_s", lambda: marlin.prove(pk, cs))
     PROVER_TIMER.reset()
+    before = dict(LAUNCHES)
     proof = timed("prove_warm_s", lambda: marlin.prove(pk, cs))
+    warm_launches = {k: v - before[k] for k, v in LAUNCHES.items()}
     regions = dict(PROVER_TIMER.totals)
     PROVER_TIMER.synchronize = False
     proof_bytes = serialize_proof(proof)
@@ -561,6 +725,7 @@ def run_marlin(device, build=schnorr_circuit, public=(), sizes=SRS_SIZES, refere
                              f"{rejected_eval}, rejected changed input={rejected_input}")
     return {"shape": shape, "srs_max_degree": srs.max_degree, "steps": steps_s,
             "index_regions": index_regions, "prove_warm_regions": regions,
+            "prove_warm_launches": warm_launches,
             "proof_bytes": len(proof_bytes), "reference": same, "verify": accepted,
             "verify_tampered_evaluation": not rejected_eval,
             "verify_changed_input": None if not public else not rejected_input}
@@ -725,7 +890,7 @@ def profile_prove(device, sizes=SRS_SIZES, top: int = 15) -> dict:
         if e.device_type == DeviceType.CUDA:
             busy_us[e.name] += e.time_range.elapsed_us()
             count[e.name] += 1
-        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
+        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel"):
             launches += 1
     busy_s = sum(busy_us.values()) / 1e6
     if busy_s <= 0:
@@ -765,6 +930,22 @@ def bound_ms(name: str, shape, clock_mhz: float, exponent: int | None = None,
             ops = lanes * (mul_ops if name == "mont_mul" else 2 * words)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / imad_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def combine_bound_ms(row: dict, clock_mhz: float) -> tuple[float, str]:
+    """The least time the card could take for the combine of ``row``
+    (check_combine): bytes, one read of the [3, 24, W·S·b] bucket sums and
+    one write of the [3, 24, W] window sums; operations, the 16 Fq
+    multiplies of every add the function needs (combine_work's
+    ``add_lanes``: the fold and the running sums, not the kernel's scan)
+    and the doubling's 7 of every one that doubles, each 2 x 12^2
+    multiply-adds."""
+    nbytes = 288 * (row["shape"][1] + row["windows"])
+    ops = 2 * 12 * 12 * (G1_MULS["g1_bucket_combine"] * row["add_lanes"]
+                         + DOUBLE_MULS * row["double_lanes"])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (SMS * IMAD_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -961,17 +1142,23 @@ def main(argv: list[str]) -> int:
         return result
 
     # the KZG path: digits (mont_mul), the SRS's normalisation (mont_pow),
-    # the fixed-base powers and the bucket combine (add), the accumulate
-    kzg = ["mont_mul", "mont_pow", "g1_fused_add", "g1_fused_madd"]
-    prover = [*FIELD_KERNELS, "ntt_reduce", "g1_fused_add", "g1_fused_madd"]
+    # the setup's fixed-base powers (add), the accumulate and the combine;
+    # the MSM path runs no setup (the SRS is the KZG path's memo)
+    msm = ["g1_fused_madd", "g1_bucket_combine"]
+    kzg = ["mont_mul", "mont_pow", "g1_fused_add", *msm]
+    prover = [*FIELD_KERNELS, "ntt_reduce", "g1_fused_add", *msm]
     paths = {}
     paths["kzg"] = drive_counting_pow("KZG", kzg, lambda: run_slice(device))
     emit({"kzg_slice": paths["kzg"]})
-    paths["msm"] = drive("MSM", ["g1_fused_madd", "g1_fused_add"], lambda: run_msm(device))
+    paths["msm"] = drive("MSM", msm, lambda: run_msm(device))
     emit({"msm": paths["msm"]})
-    accumulate = check_accumulate(device)
+    accumulated: list = []
+    accumulate = check_accumulate(device, keep=accumulated)
     emit({"accumulate_check": accumulate})
     checks["g1_fused_madd"].append(accumulate)
+    checks["g1_bucket_combine"] = check_combine(device, accumulated)
+    del accumulated
+    emit({"combine_checks": checks["g1_bucket_combine"]})
     kzg10._SRS_MEMO.clear()  # the Marlin path's setup is timed, not read from the memo
     paths["chain"] = drive_counting_pow("chain", prover, lambda: run_chain(device))
     emit({"chain": paths["chain"]})
@@ -979,6 +1166,11 @@ def main(argv: list[str]) -> int:
     paths["marlin"] = drive_counting_pow(
         "Marlin", prover, lambda: run_marlin(device, reference=reference, keep=kept))
     emit({"marlin": paths["marlin"]})
+    for label in ("chain", "marlin"):
+        warm = paths[label]["prove_warm_launches"]
+        if warm["g1_fused_add"] or warm["g1_bucket_combine"] <= 0:
+            raise AssertionError(f"the {label} path's warm prove ran the fused add or no "
+                                 f"combine: {warm}")
     # the old default in the same call, outside the paths' counts
     emit({"marlin_affine": drive_affine_prove(
         lambda: run_affine_prove(device, kept["pk"], kept["cs"], kept["proof"]),
@@ -989,15 +1181,19 @@ def main(argv: list[str]) -> int:
 
     kernels = []
     for name, rows in checks.items():
-        # the Fq shape for the binary ops and the add, the Fr pow, the group's
-        # accumulate
-        main_row = rows[-1]
+        # the Fq shape for the binary ops and the add, the Fr pow (its widest
+        # row checked on every lane), the group's accumulate and combine
+        main_row = [r for r in rows if "plain_shape" not in r][-1]
         for row in rows:
             # the pow's exponent is the Fermat one of the row's field
             exponent = (FR if row["shape"][0] == 16 else FQ).p - 2 if name == "mont_pow" else None
-            row["bound_ms"], row["bound_by"] = accumulate_bound_ms(row, clock_mhz) \
-                if "depth" in row else bound_ms(name, row["shape"], clock_mhz, exponent,
-                                                row.get("double_lanes", 0))
+            if name == "g1_bucket_combine":
+                row["bound_ms"], row["bound_by"] = combine_bound_ms(row, clock_mhz)
+            elif "depth" in row:
+                row["bound_ms"], row["bound_by"] = accumulate_bound_ms(row, clock_mhz)
+            else:
+                row["bound_ms"], row["bound_by"] = bound_ms(name, row["shape"], clock_mhz,
+                                                            exponent, row.get("double_lanes", 0))
         by_path = {label: run["launches"][name] for label, run in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
@@ -1007,7 +1203,9 @@ def main(argv: list[str]) -> int:
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"], "library_ms": None,
             "shape": main_row["shape"], "equal": all(r["equal"] for r in rows),
             "launches_by_path": by_path,
-            "shapes": [{k: r[k] for k in ("shape", "depth", "ms", "plain_ms", "bound_ms") if k in r}
+            "shapes": [{k: r[k] for k in ("shape", "depth", "windows", "segments", "buckets", "ms",
+                                          "plain_ms", "plain_shape", "route_ms", "bound_ms")
+                        if k in r}
                        for r in rows],
         })
     if any(k["launches"] <= 0 for k in kernels):

@@ -8,6 +8,11 @@
 //                              accumulate of simpleworks_tpu/ops/
 //                              msm_pippenger.py (lax.scan over gather, madd
 //                              and select)
+//   swt_g1_bucket_combine   <- _fused_add_kernel again, together with the
+//                              loops that run it in that file's
+//                              accumulate_windows: the segment fold and the
+//                              two suffix passes (lax.fori_loop over
+//                              g1_limb.add of a dynamic-slice shift)
 //
 // A point is three (Jacobian X, Y, Z) or two (affine x, y) coordinate planes,
 // each a limb-major [24, B] int32 Fq vector of 16-bit Montgomery limbs with
@@ -60,11 +65,36 @@
 // into shared memory while row d computes bought nothing at either
 // occupancy: the chains' latency, not the gathers', is what the warps hide
 // (PERF.md, row 6).
+//
+// The combine: a group's bucket sums S_{w,s,d} (the accumulate's output,
+// lane w S b + s b + d) become its window sums sum_d d S_{w,d} in
+// log2 S + 2 log2 b steps, each adding to every lane of its width the lane
+// a shift away (the step loop of g1_bucket_combine_kernel says which).  On
+// the TPU the steps are one compiled graph; launched one add at a time they
+// cost ~40 launches a group from the host, with a copy or a concatenation
+// before each.  What bounds it: the adds' multiplies, 16 of 288 multiply-
+// adds a lane that runs the formula, ~3.7 M such lanes (1.0 ms) at the
+// 2^20 c = 13 group against 45 MB read once, and in the 2^17 groups' narrow
+// steps (32 to 7,936 lanes) the latency of one add's dependent multiplies,
+// since most SMs then have no lane to run.  The design: every step in one
+// cooperative launch, a grid-stride loop a step and a grid-wide barrier
+// between steps (the grid is what the SMs hold at once, so all blocks are
+// resident); the lanes of a step live in two ping-pong buffers of packed
+// 32-bit words, half the bytes of the 16-bit limb planes; a lane whose
+// operand lies past its window skips the arithmetic.  Occupancy:
+// __launch_bounds__(64, 4), 8 warps an SM at up to 255 registers, holds the
+// formula in 254 without spills; (128, 3), 12 warps at 168 registers with
+// 336 bytes of spills, ran 3-16 % slower at the three MSM groups of the
+// path on the H100 (PERF.md, row 7).
 
+#include <algorithm>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "field_arith.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -118,6 +148,16 @@ __device__ __forceinline__ void dbl(Fe& X3, Fe& Y3, Fe& Z3, const Fe& X1, const 
   mul(Z3, t, Z1, M);
 }
 
+// (X, Y, Z) = (one, one, 0), the Jacobian identity of g1_limb.identity.
+__device__ __forceinline__ void set_identity(Fe& X, Fe& Y, Fe& Z, const Mod& M) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    X[k] = M.one[k];
+    Y[k] = M.one[k];
+    Z[k] = 0;
+  }
+}
+
 __device__ __forceinline__ void store_point(int32_t* out, int64_t B, int64_t j, const Fe& X,
                                             const Fe& Y, const Fe& Z) {
   swt::store<N>(out, B, j, X);
@@ -125,19 +165,15 @@ __device__ __forceinline__ void store_point(int32_t* out, int64_t B, int64_t j, 
   swt::store<N>(out + 2 * kLimbs * B, B, j, Z);
 }
 
-__global__ void g1_fused_add_kernel(Views<6> in, int32_t* out, int64_t B, Mod M) {
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= B) return;
-  Fe X1, Y1, Z1, X2, Y2, Z2;
-  swt::load<N>(X1, in.v[0], j);
-  swt::load<N>(Y1, in.v[1], j);
-  swt::load<N>(Z1, in.v[2], j);
-  swt::load<N>(X2, in.v[3], j);
-  swt::load<N>(Y2, in.v[4], j);
-  swt::load<N>(Z2, in.v[5], j);
-
-  // general addition (add-2007-bl), in the operation order of g1_limb.add
-  Fe Z1Z1, Z2Z2, U1, S1, H, rr, I, J, t, X3, Y3, Z3;
+// (X3, Y3, Z3) = (X1, Y1, Z1) + (X2, Y2, Z2), the complete Jacobian addition
+// (add-2007-bl) in the operation order of g1_limb.add, with the reference
+// kernel's case order: double if H = 0 and r = 0; the identity if H = 0,
+// r != 0 and neither input is the identity; then q = identity -> p; then
+// p = identity -> q (the last wins).
+__device__ __forceinline__ void add_complete(Fe& X3, Fe& Y3, Fe& Z3, const Fe& X1, const Fe& Y1,
+                                             const Fe& Z1, const Fe& X2, const Fe& Y2,
+                                             const Fe& Z2, const Mod& M) {
+  Fe Z1Z1, Z2Z2, U1, S1, H, rr, I, J, t;
   mul(Z1Z1, Z1, Z1, M);
   mul(Z2Z2, Z2, Z2, M);
   mul(U1, X1, Z2Z2, M);
@@ -173,14 +209,7 @@ __global__ void g1_fused_add_kernel(Views<6> in, int32_t* out, int64_t B, Mod M)
   const bool p_ident = swt::is_zero<N>(Z1);
   const bool q_ident = swt::is_zero<N>(Z2);
   if (h_zero && r_zero) dbl(X3, Y3, Z3, X1, Y1, Z1, M);
-  if (h_zero && !r_zero && !p_ident && !q_ident) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      X3[k] = M.one[k];
-      Y3[k] = M.one[k];
-      Z3[k] = 0;
-    }
-  }
+  if (h_zero && !r_zero && !p_ident && !q_ident) set_identity(X3, Y3, Z3, M);
   if (q_ident) {
     swt::copy<N>(X3, X1);
     swt::copy<N>(Y3, Y1);
@@ -191,6 +220,19 @@ __global__ void g1_fused_add_kernel(Views<6> in, int32_t* out, int64_t B, Mod M)
     swt::copy<N>(Y3, Y2);
     swt::copy<N>(Z3, Z2);
   }
+}
+
+__global__ void g1_fused_add_kernel(Views<6> in, int32_t* out, int64_t B, Mod M) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= B) return;
+  Fe X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3;
+  swt::load<N>(X1, in.v[0], j);
+  swt::load<N>(Y1, in.v[1], j);
+  swt::load<N>(Z1, in.v[2], j);
+  swt::load<N>(X2, in.v[3], j);
+  swt::load<N>(Y2, in.v[4], j);
+  swt::load<N>(Z2, in.v[5], j);
+  add_complete(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2, M);
   store_point(out, B, j, X3, Y3, Z3);
 }
 
@@ -234,14 +276,7 @@ __device__ __forceinline__ void madd_complete(Fe& X3, Fe& Y3, Fe& Z3, const Fe& 
   const bool p_ident = swt::is_zero<N>(Z1);
   const bool q_ident = swt::is_zero<N>(X2) && swt::is_zero<N>(Y2);
   if (h_zero && r_zero && !p_ident && !q_ident) dbl(X3, Y3, Z3, X1, Y1, Z1, M);
-  if (h_zero && !r_zero && !p_ident && !q_ident) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      X3[k] = M.one[k];
-      Y3[k] = M.one[k];
-      Z3[k] = 0;
-    }
-  }
+  if (h_zero && !r_zero && !p_ident && !q_ident) set_identity(X3, Y3, Z3, M);
   if (p_ident) {
     swt::copy<N>(X3, X2);
     swt::copy<N>(Y3, Y2);
@@ -297,13 +332,8 @@ __global__ void __launch_bounds__(kAccumulateThreads, kAccumulateBlocksPerSm)
     swt::load<N>(X, a.acc[0], j);
     swt::load<N>(Y, a.acc[1], j);
     swt::load<N>(Z, a.acc[2], j);
-  } else {  // the identity (one, one, 0)
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      X[k] = M.one[k];
-      Y[k] = M.one[k];
-      Z[k] = 0;
-    }
+  } else {
+    set_identity(X, Y, Z, M);
   }
   for (int64_t d = 0; d < a.depth; ++d) {
     const int64_t at = d * a.lanes + j;
@@ -320,6 +350,138 @@ __global__ void __launch_bounds__(kAccumulateThreads, kAccumulateBlocksPerSm)
     swt::copy<N>(Z, Z3);
   }
   store_point(a.out, a.lanes, j, X, Y, Z);
+}
+
+// ------------------------------------------------------------ the combine --
+
+constexpr int kCombineThreads = 64;
+constexpr int kCombineBlocksPerSm = 4;
+
+struct CombineArgs {
+  swt::View in[3];  // the accumulate's X, Y, Z planes: [24, W S b], lane w S b + s b + d
+  uint32_t* buf[2];  // ping-pong steps: [3, 12, cap] 32-bit words each
+  int64_t cap;  // lanes of the widest step
+  int64_t windows, segs, buckets;
+  int fold_steps, log_b;  // log2 S, log2 b
+  int32_t* out;  // [3, 24, W]: the window sums
+};
+
+// A lane of a ping-pong buffer: X, Y, Z, each 12 packed words, word k of
+// coordinate c at buf[(c N + k) cap + j].  The buffers are written and read
+// inside one launch, so they are read with plain loads (never __ldg): after
+// grid.sync() every block sees what the others stored.
+__device__ __forceinline__ void load_words(Fe& X, Fe& Y, Fe& Z, const uint32_t* buf,
+                                           int64_t cap, int64_t j) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    X[k] = buf[k * cap + j];
+    Y[k] = buf[(N + k) * cap + j];
+    Z[k] = buf[(2 * N + k) * cap + j];
+  }
+}
+
+__device__ __forceinline__ void store_words(uint32_t* buf, int64_t cap, int64_t j, const Fe& X,
+                                            const Fe& Y, const Fe& Z) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    buf[k * cap + j] = X[k];
+    buf[(N + k) * cap + j] = Y[k];
+    buf[(2 * N + k) * cap + j] = Z[k];
+  }
+}
+
+// Lane j of the step's source: the input planes (src < 0) or buffer src.
+__device__ __forceinline__ void load_lane(Fe& X, Fe& Y, Fe& Z, const CombineArgs& a, int src,
+                                          int64_t j) {
+  if (src < 0) {
+    swt::load<N>(X, a.in[0], j);
+    swt::load<N>(Y, a.in[1], j);
+    swt::load<N>(Z, a.in[2], j);
+  } else {
+    load_words(X, Y, Z, a.buf[src], a.cap, j);
+  }
+}
+
+// The whole bucket combine of one group in log2 S + 2 log2 b steps, each a
+// grid-stride loop over its lanes from one ping-pong buffer into the other,
+// with a grid-wide barrier between steps (a cooperative launch, every block
+// resident).  Lane i of a step adds the lanes jp and jp + k of its source:
+//   fold, s = S, S/2, .., 2:  lane (w, s' < s/2, d) <- (w, s', d) +
+//       (w, s' + s/2, d), so jp = w s b + s' b + d and k = (s/2) b;
+//   suffix passes, k = 1, 2, .., b/2, twice:  lane (w, d) <- (w, d) +
+//       (w, d + k), the identity past the window; before the second pass
+//       T_0 is the identity, and lane (w, 0) of its last step, the window
+//       sum, is the only lane written out.
+__global__ void __launch_bounds__(kCombineThreads, kCombineBlocksPerSm)
+    g1_bucket_combine_kernel(CombineArgs a, Mod M) {
+  cg::grid_group grid = cg::this_grid();
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kCombineThreads + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kCombineThreads;
+  const int64_t b = a.buckets;
+  int src = -1, dst = 0;
+  for (int t = 0; t < a.fold_steps + 2 * a.log_b; ++t) {
+    const bool fold = t < a.fold_steps;
+    const int u = t - a.fold_steps;  // the suffix step
+    const int64_t half_lanes = (a.segs >> (t + 1)) * b;  // of one window, in a fold step
+    const int64_t k = fold ? half_lanes : int64_t{1} << (u % a.log_b);
+    const bool reset = u == a.log_b;
+    const bool last = u == 2 * a.log_b - 1;
+    const int64_t lanes = a.windows * (fold ? half_lanes : b);
+    for (int64_t i = first; i < lanes; i += stride) {
+      const int64_t jp = fold ? i + (i / half_lanes) * half_lanes : i;
+      const int64_t d = i & (b - 1);
+      Fe X1, Y1, Z1, X3, Y3, Z3;
+      if (reset && d == 0) {
+        set_identity(X1, Y1, Z1, M);
+      } else {
+        load_lane(X1, Y1, Z1, a, src, jp);
+      }
+      if (fold || d + k < b) {
+        Fe X2, Y2, Z2;
+        load_lane(X2, Y2, Z2, a, src, jp + k);
+        add_complete(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2, M);
+      } else if (swt::is_zero<N>(Z1)) {
+        // past the window the operand is the identity q = (one, one, 0):
+        // the full formula's q_ident case gives p, then its p_ident case
+        // (the last wins) gives q, so an identity p becomes (one, one, 0)
+        set_identity(X3, Y3, Z3, M);
+      } else {  // ... and any other p stays p
+        swt::copy<N>(X3, X1);
+        swt::copy<N>(Y3, Y1);
+        swt::copy<N>(Z3, Z1);
+      }
+      if (!last) {
+        store_words(a.buf[dst], a.cap, i, X3, Y3, Z3);
+      } else if (d == 0) {
+        store_point(a.out, a.windows, i / b, X3, Y3, Z3);
+      }
+    }
+    if (last) return;
+    grid.sync();
+    src = dst;
+    dst ^= 1;
+  }
+}
+
+// One cooperative launch of the combine: the grid is the blocks an SM can
+// hold at once times the SMs, so every block is resident for the grid-wide
+// barriers, or fewer where the widest step has fewer lanes than that.
+cudaError_t launch_combine(const CombineArgs& a, const Mod& M, cudaStream_t stream) {
+  const void* kernel = reinterpret_cast<const void*>(g1_bucket_combine_kernel);
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kCombineThreads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int64_t blocks = std::min<int64_t>(static_cast<int64_t>(per_sm) * sms,
+                                           (a.cap + kCombineThreads - 1) / kCombineThreads);
+  CombineArgs args = a;
+  Mod mod = M;
+  void* params[] = {&args, &mod};
+  return cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(blocks)),
+                                     dim3(kCombineThreads), params, 0, stream);
 }
 
 template <int K>
@@ -379,12 +541,43 @@ int swt_g1_madd_accumulate(const int64_t* acc_views, const int32_t* rows, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// `in_views`: (data pointer, row stride, column stride) of the X, Y, Z
+// planes of the accumulate's [24, W S b] output, lane w S b + s b + d;
+// `bufs`: two int32 scratch arrays of 36 cap words each, cap = W b
+// max(S / 2, 1); `out`: a dense [3, 24, W] int32 array.  S and b are powers
+// of two, b >= 2.  One cooperative launch on `stream` like the adds above.
+int swt_g1_bucket_combine(const int64_t* in_views, int32_t* buf0, int32_t* buf1, int64_t windows,
+                          int64_t segs, int64_t buckets, int32_t* out, const uint32_t* p,
+                          uint32_t n0, const uint32_t* one, void* stream) {
+  if (windows <= 0) return 0;
+  CombineArgs a;
+  const Views<3> v = unpack_views<3>(in_views);
+  for (int i = 0; i < 3; ++i) a.in[i] = v.v[i];
+  a.buf[0] = reinterpret_cast<uint32_t*>(buf0);
+  a.buf[1] = reinterpret_cast<uint32_t*>(buf1);
+  a.cap = windows * buckets * (segs > 1 ? segs / 2 : 1);
+  a.windows = windows;
+  a.segs = segs;
+  a.buckets = buckets;
+  a.fold_steps = 0;
+  while ((int64_t{1} << a.fold_steps) < segs) ++a.fold_steps;
+  a.log_b = 0;
+  while ((int64_t{1} << a.log_b) < buckets) ++a.log_b;
+  a.out = out;
+  const cudaError_t err = launch_combine(a, swt::make_modulus<N>(p, n0, one),
+                                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Registers a thread and local memory a thread (spills) of each kernel as
-// compiled: out[0..1] for the add, out[2..3] for the accumulate.
+// compiled: out[0..1] for the add, out[2..3] for the accumulate, out[4..5]
+// for the combine.
 int swt_g1_kernel_resources(int* out) {
   const void* kernels[] = {reinterpret_cast<const void*>(g1_fused_add_kernel),
-                           reinterpret_cast<const void*>(g1_madd_accumulate_kernel)};
-  for (int k = 0; k < 2; ++k) {
+                           reinterpret_cast<const void*>(g1_madd_accumulate_kernel),
+                           reinterpret_cast<const void*>(g1_bucket_combine_kernel)};
+  for (int k = 0; k < 3; ++k) {
     cudaFuncAttributes attr;
     const cudaError_t err = cudaFuncGetAttributes(&attr, kernels[k]);
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -47,13 +47,14 @@ SIGNATURES = {
     "g1_kernels": {
         "swt_g1_fused_add": [_P, _P, _I64, _P, ctypes.c_uint32, _P, _P],
         "swt_g1_madd_accumulate": [_P, _P, _P, _P, _I64, _I64, _P, _P, ctypes.c_uint32, _P, _P],
+        "swt_g1_bucket_combine": [_P, _P, _P, _I64, _I64, _I64, _P, _P, ctypes.c_uint32, _P, _P],
         "swt_g1_kernel_resources": [_P],
     },
 }
 
 #: kernel launches by kernel name since the last :func:`reset_launches`
 LAUNCHES = {"mont_mul": 0, "mod_add": 0, "mod_sub": 0, "mont_pow": 0, "ntt_reduce": 0,
-            "g1_fused_add": 0, "g1_fused_madd": 0}
+            "g1_fused_add": 0, "g1_fused_madd": 0, "g1_bucket_combine": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 #: seconds of wall clock the builds took in this process (0.0 while only

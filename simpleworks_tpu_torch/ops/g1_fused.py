@@ -1,8 +1,9 @@
-"""Complete BLS12-377 G1 point adds in one launch: the two kernels of
+"""Complete BLS12-377 G1 point adds in one launch: the three kernels of
 ``csrc/g1_kernels.cu`` and their plain PyTorch versions.
 
-Port of ``simpleworks_tpu/ops/g1_fused_pallas.py`` and of the MSM's bucket
-accumulate scan around its mixed add.  A point is a tuple of limb-major
+Port of ``simpleworks_tpu/ops/g1_fused_pallas.py``, of the MSM's bucket
+accumulate scan around its mixed add, and of its bucket combine (the
+segment fold and the two suffix passes) around its Jacobian add.  A point is a tuple of limb-major
 ``[24, B]`` ``torch.int32`` Fq Montgomery planes: Jacobian (X, Y, Z) with
 Z = 0 the identity, or affine (x, y) with x = y = 0 the identity.
 
@@ -11,7 +12,10 @@ Z = 0 the identity, or affine (x, y) with x = y = 0 the identity.
   row, the affine table point that the row's index names where its flag
   holds (madd-2007-bl, 11 multiplies an add): the MSM's whole bucket
   accumulate of one group in one launch;
-* :func:`fused_madd` — Jacobian + affine, the one-row accumulate.
+* :func:`fused_madd` — Jacobian + affine, the one-row accumulate;
+* :func:`bucket_combine` — a group's bucket sums to its window sums
+  Σ_d d·S_d: the segment fold, then two suffix passes of Jacobian adds,
+  every step in one launch.
 
 The adds are complete: the equal-x cases double (dbl-2009-l) or cancel, and
 the identities pass the other operand through, selected in the reference
@@ -34,8 +38,8 @@ from .mont_mul import (
     _check, _on_cuda, _raise_on, mod_add_plain, mod_sub_plain, mont_mul_plain,
 )
 
-__all__ = ["fused_add", "fused_madd", "madd_accumulate", "fused_add_plain", "fused_madd_plain",
-           "madd_accumulate_plain"]
+__all__ = ["fused_add", "fused_madd", "madd_accumulate", "bucket_combine", "fused_add_plain",
+           "fused_madd_plain", "madd_accumulate_plain", "bucket_combine_plain"]
 
 #: 16-bit limbs of an affine table row: x, then y
 ROW_LIMBS = 2 * FQ.n_limbs
@@ -195,6 +199,45 @@ def madd_accumulate_plain(acc3, rows, idx, valid):
     return acc
 
 
+def bucket_combine_plain(acc3, w_count: int, segs: int, b: int, add=fused_add_plain):
+    """The plain version of :func:`bucket_combine`, on any device: one
+    ``add`` of whole planes a step (``fused_add_plain`` unless a caller
+    passes another add)."""
+    dev = acc3[0].device
+    acc = tuple(acc3)
+    # fold the segment axis: [24, W, S, B] -> [24, W, B]
+    s = segs
+    while s > 1:
+        half = s // 2
+        t4 = tuple(a.reshape(24, w_count, s, b) for a in acc)
+        left = tuple(a[:, :, :half].reshape(24, w_count * half * b) for a in t4)
+        right = tuple(a[:, :, half:].reshape(24, w_count * half * b) for a in t4)
+        acc = add(left, right)
+        s = half
+
+    ident = tuple(a.reshape(24, w_count, b) for a in identity(w_count * b, dev))
+
+    def suffix_pass(t):
+        """Inclusive suffix sums along the bucket axis: T_j ← Σ_{d≥j} T_d."""
+        k = 1
+        while k < b:
+            shifted = tuple(
+                torch.cat([a[:, :, k:], i[:, :, :k]], dim=2).reshape(24, w_count * b)
+                for a, i in zip(t, ident)
+            )
+            flat = tuple(a.reshape(24, w_count * b) for a in t)
+            t = tuple(a.reshape(24, w_count, b) for a in add(flat, shifted))
+            k <<= 1
+        return t
+
+    # Σ_d d·S_d: T_j = Σ_{d≥j} S_d, then with T_0 zeroed (digit 0 has weight
+    # 0) lane 0 of a second suffix pass is Σ_{j≥1} T_j = Σ_d d·S_d
+    t = suffix_pass(tuple(a.reshape(24, w_count, b) for a in acc))
+    t = tuple(torch.cat([i[:, :, :1], a[:, :, 1:]], dim=2) for a, i in zip(t, ident))
+    t = suffix_pass(t)
+    return tuple(a[:, :, 0] for a in t)
+
+
 # ------------------------------------------------------------------ wrappers --
 
 
@@ -265,16 +308,53 @@ def _launch_accumulate(acc3, rows, idx, valid) -> tuple:
     return out[0], out[1], out[2]
 
 
+def _check_combine(acc3, w_count: int, segs: int, b: int) -> None:
+    if len(acc3) != 3:
+        raise ValueError("the bucket sums are an (X, Y, Z) triple")
+    _check(FQ, *acc3)
+    for name, v in (("segments", segs), ("buckets", b)):
+        if v < 1 or v & (v - 1):
+            raise ValueError(f"the {name} must be a power of two, got {v}")
+    if b < 2:
+        raise ValueError(f"a window needs at least 2 buckets, got {b}")
+    if w_count < 1 or acc3[0].shape[1] != w_count * segs * b:
+        raise ValueError(f"{acc3[0].shape[1]} lanes are not {w_count} windows x {segs} segments "
+                         f"x {b} buckets")
+    if not all(a.is_contiguous() for a in acc3):
+        raise ValueError("the bucket-sum planes must be contiguous")
+
+
+def _launch_combine(acc3, w_count: int, segs: int, b: int) -> tuple:
+    """One cooperative launch of the combine kernel (CUDA tensors)."""
+    from ._build import library
+
+    dev = acc3[0].device
+    out = torch.empty((3, FQ.n_limbs, w_count), dtype=torch.int32, device=dev)
+    cap = w_count * b * max(segs // 2, 1)  # lanes of the widest step's output
+    bufs = torch.empty((2, 3 * FQ.n_limbs // 2, cap), dtype=torch.int32, device=dev)
+    views = (ctypes.c_int64 * 9)(
+        *[v for t in acc3 for v in (t.data_ptr(), t.stride(0), t.stride(1))])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = library("g1_kernels").swt_g1_bucket_combine(
+            ctypes.addressof(views), bufs[0].data_ptr(), bufs[1].data_ptr(), w_count, segs, b,
+            out.data_ptr(), FQ.p_words_ptr, FQ.n0_32, FQ.one_words_ptr, stream)
+    _raise_on(rc, "g1_bucket_combine")
+    LAUNCHES["g1_bucket_combine"] += 1
+    return out[0], out[1], out[2]
+
+
 def kernel_resources() -> dict:
     """Registers and local (spill) bytes a thread of each kernel, as the
     card's compiler built them."""
     from ._build import library
 
-    out = (ctypes.c_int * 4)()
+    names = ("g1_fused_add", "g1_fused_madd", "g1_bucket_combine")
+    out = (ctypes.c_int * (2 * len(names)))()
     _raise_on(library("g1_kernels").swt_g1_kernel_resources(ctypes.addressof(out)),
               "g1 kernel attributes")
-    return {"g1_fused_add": {"registers": out[0], "local_bytes": out[1]},
-            "g1_fused_madd": {"registers": out[2], "local_bytes": out[3]}}
+    return {name: {"registers": out[2 * k], "local_bytes": out[2 * k + 1]}
+            for k, name in enumerate(names)}
 
 
 def fused_add(p3, q3):
@@ -317,3 +397,16 @@ def fused_madd(p3, q2):
     idx = torch.arange(B, device=rows.device).reshape(1, B)
     valid = torch.ones((1, B), dtype=torch.bool, device=rows.device)
     return madd_accumulate(p3, rows, idx, valid)
+
+
+def bucket_combine(acc3, w_count: int, segs: int, b: int):
+    """The bucket combine of one MSM group: ``acc3`` holds the bucket sums
+    S_{w,s,d} (([24, W·S·b],)*3 contiguous Jacobian planes, lane
+    w·S·b + s·b + d, as :func:`madd_accumulate` leaves them); the S segments
+    of each bucket are folded into one, and two inclusive suffix passes over
+    the b buckets give each window's Σ_d d·S_d, returned as ([24, W],)*3.
+    S and b are powers of two, b >= 2.  One kernel launch on CUDA tensors."""
+    _check_combine(acc3, w_count, segs, b)
+    if not _on_cuda(acc3[0]):
+        return bucket_combine_plain(acc3, w_count, segs, b)
+    return _launch_combine(acc3, w_count, segs, b)

@@ -55,17 +55,28 @@ def _normalize(v: torch.Tensor):
         top = top + c[-1]
 
 
+@lru_cache(maxsize=8)
+def _p_col(field: LimbField, device: torch.device) -> torch.Tensor:
+    """[L, 1] int64: the limbs of p, made once a field and device."""
+    return field.col(field.p_limbs, device, torch.int64)
+
+
+@lru_cache(maxsize=8)
+def _pow3(n_limbs: int, device: torch.device) -> torch.Tensor:
+    """[L, 1] int64: 3^i for limb i."""
+    return torch.tensor([3**i for i in range(n_limbs)], dtype=torch.int64, device=device)[:, None]
+
+
 def _geq(x: torch.Tensor, field: LimbField) -> torch.Tensor:
     """x ≥ p for 16-bit limb rows [L, B]: the sign of the most significant
     limb that differs, as the sign of Σ sign(x_i − p_i)·3^i."""
-    pow3 = torch.tensor([3**i for i in range(field.n_limbs)], dtype=torch.int64, device=x.device)
-    s = torch.sign(x - field.col(field.p_limbs, x.device, torch.int64))
-    return (s * pow3[:, None]).sum(dim=0) >= 0
+    s = torch.sign(x - _p_col(field, x.device))
+    return (s * _pow3(field.n_limbs, x.device)).sum(dim=0) >= 0
 
 
 def _reduce_once(v: torch.Tensor, carry: torch.Tensor, field: LimbField) -> torch.Tensor:
     """V = carry·2^(16L) + v < 2p -> V mod p (subtract p once when V ≥ p)."""
-    diff, _ = _normalize(v - field.col(field.p_limbs, v.device, torch.int64))
+    diff, _ = _normalize(v - _p_col(field, v.device))
     return torch.where((carry > 0) | _geq(v, field), diff, v).to(torch.int32)
 
 
@@ -84,11 +95,12 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.
     t = torch.zeros((2 * L + 1, a.shape[1]), dtype=torch.int64, device=a.device)
     # column sums of the limb outer product stay < 2L·2^32: no carries yet
     t.index_add_(0, _diagonals(L, a.device), (a64[:, None, :] * b64[None, :, :]).reshape(L * L, -1))
-    p = field.col(field.p_limbs, a.device, torch.int64)
+    p = _p_col(field, a.device)
+    rows = t.unbind(0)
     for i in range(L):
-        m = (t[i] * field.n0_16) & LIMB_MASK  # t[i] < 2^40: no int64 overflow
+        m = (rows[i] * field.n0_16) & LIMB_MASK  # t[i] < 2^40: no int64 overflow
         t[i : i + L] += m * p
-        t[i + 1] += t[i] >> LIMB_BITS  # row i is now ≡ 0 mod 2^16
+        rows[i + 1].add_(rows[i] >> LIMB_BITS)  # row i is now ≡ 0 mod 2^16
     res, carry = _normalize(t[L:])  # rows L..2L: V < 2p, so row 2L is 0 or 1
     return _reduce_once(res[:L], res[L] + carry, field)
 
@@ -102,7 +114,7 @@ def mod_add_plain(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.T
 def mod_sub_plain(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.Tensor:
     """(a − b) mod p: borrow-propagate, then add p back when it wrapped."""
     diff, borrow = _normalize(a.to(torch.int64) - b.to(torch.int64))
-    plus, _ = _normalize(diff + field.col(field.p_limbs, a.device, torch.int64))
+    plus, _ = _normalize(diff + _p_col(field, a.device))
     return torch.where(borrow < 0, plus, diff).to(torch.int32)
 
 

@@ -21,8 +21,8 @@ Port of the default device route of ``simpleworks_tpu/ops/msm_pippenger.py``
    field-kernel launches and one Fermat pow a row), the reference's TPU
    default, kept as an option and as the oracle.
 4. **Bucket combine**: segment fold, then Σ_d d·S_d per window by two
-   inclusive suffix passes over the bucket axis, each step one launch of the
-   fused Jacobian add kernel on CUDA (``g1_limb.add``).
+   inclusive suffix passes over the bucket axis; on CUDA one launch of the
+   combine kernel a group runs every step (``g1_fused.bucket_combine``).
 5. **Host window fold**: the W window sums come back and Horner with c
    doublings a window combines them.
 """
@@ -154,7 +154,8 @@ def accumulate_windows(points_xy: torch.Tensor, idx: torch.Tensor, valid: torch.
     ``accum``: ``"madd"`` does the 11-mul Jacobian mixed add, all D rows in
     one accumulate-kernel launch on CUDA; ``"affine"`` keeps the accumulator
     affine and does batch-affine adds (~4 muls plus a shared batched
-    inversion a row, a Python loop over the rows)."""
+    inversion a row, a Python loop over the rows).  Either way the bucket
+    combine follows, one combine-kernel launch on CUDA."""
     dev = points_xy.device
     if accum is None:
         accum = default_accum(dev)
@@ -174,37 +175,7 @@ def accumulate_windows(points_xy: torch.Tensor, idx: torch.Tensor, valid: torch.
     else:
         raise ValueError(f"unknown accumulate mode {accum!r}")
 
-    # fold the segment axis: [24, W, S, B] -> [24, W, B]
-    s = segs
-    while s > 1:
-        half = s // 2
-        t4 = tuple(a.reshape(24, w_count, s, b) for a in acc)
-        left = tuple(a[:, :, :half].reshape(24, w_count * half * b) for a in t4)
-        right = tuple(a[:, :, half:].reshape(24, w_count * half * b) for a in t4)
-        acc = g1_limb.add(left, right)
-        s = half
-
-    ident = tuple(a.reshape(24, w_count, b) for a in g1_limb.identity(w_count * b, dev))
-
-    def suffix_pass(t):
-        """Inclusive suffix sums along the bucket axis: T_j ← Σ_{d≥j} T_d."""
-        k = 1
-        while k < b:
-            shifted = tuple(
-                torch.cat([a[:, :, k:], i[:, :, :k]], dim=2).reshape(24, w_count * b)
-                for a, i in zip(t, ident)
-            )
-            flat = tuple(a.reshape(24, w_count * b) for a in t)
-            t = tuple(a.reshape(24, w_count, b) for a in g1_limb.add(flat, shifted))
-            k <<= 1
-        return t
-
-    # Σ_d d·S_d: T_j = Σ_{d≥j} S_d, then with T_0 zeroed (digit 0 has weight
-    # 0) lane 0 of a second suffix pass is Σ_{j≥1} T_j = Σ_d d·S_d
-    t = suffix_pass(tuple(a.reshape(24, w_count, b) for a in acc))
-    t = tuple(torch.cat([i[:, :, :1], a[:, :, 1:]], dim=2) for a, i in zip(t, ident))
-    t = suffix_pass(t)
-    return tuple(a[:, :, 0] for a in t)
+    return g1_fused.bucket_combine(acc, w_count, segs, b)
 
 
 def _auto_window_bits(n: int) -> int:

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (the field kernels, the NTT's reduce kernel, the
-fused G1 point add and the MSM's bucket accumulate) against their plain
-PyTorch versions, on the card (exact equality: field arithmetic is exact).
+fused G1 point add, the MSM's bucket accumulate and its bucket combine)
+against their plain PyTorch versions, on the card (exact equality: field
+arithmetic is exact).
 
 Skips without a CUDA device.  On a machine with one:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
@@ -231,6 +232,62 @@ def test_madd_accumulate_rejects_bad_inputs(cuda):
         g1_fused.madd_accumulate(None, flat[1:].view(8, 48), idx, valid)
     with pytest.raises(ValueError):  # a CPU grid for a card table
         g1_fused.madd_accumulate(None, rows, idx.cpu(), valid.cpu())
+
+
+def combine_sums(w_count, segs, b, seed, device, pool=8192):
+    """Bucket sums of a (W, S, b) grid: the p3 lanes of g1_inputs (the lane
+    cases of G1_CASES among seed-made points), repeated past ``pool``
+    lanes."""
+    from chip_smoke import g1_inputs
+
+    lanes = w_count * segs * b
+    ins = g1_inputs(min(lanes, pool), seed, device)
+    reps = -(-lanes // pool)
+    return tuple(a.repeat(1, reps)[:, :lanes].contiguous() for a in ins["p3"])
+
+
+@pytest.mark.parametrize("w_count,segs,b", [(1, 1, 2), (1, 4, 2), (3, 1, 8), (2, 8, 32),
+                                            (5, 2, 64), (19, 1, 256)])
+def test_bucket_combine_matches_plain(cuda, w_count, segs, b):
+    """The combine kernel against the plain version, one launch counted per
+    call."""
+    from simpleworks_tpu_torch.ops import g1_fused
+
+    acc = combine_sums(w_count, segs, b, 20 + b, cuda)
+    expected = g1_fused.bucket_combine_plain(acc, w_count, segs, b)
+    before = mm.LAUNCHES["g1_bucket_combine"]
+    got = g1_fused.bucket_combine(acc, w_count, segs, b)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["g1_bucket_combine"] == before + 1
+    assert all(map(torch.equal, got, expected))
+
+
+def test_bucket_combine_grid_stride_rounds(cuda):
+    """A grid whose widest step (the fold's 2^17 lanes) and suffix steps
+    have more lanes than the card holds resident threads, so each step's
+    grid-stride loop runs more than one round."""
+    from simpleworks_tpu_torch.ops import g1_fused
+
+    w_count, segs, b = 4096, 2, 32
+    # an SM holds at most 65,536 registers' worth of threads
+    registers = g1_fused.kernel_resources()["g1_bucket_combine"]["registers"]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert w_count * b > sms * (65536 // registers)
+    acc = combine_sums(w_count, segs, b, 21, cuda)
+    got = g1_fused.bucket_combine(acc, w_count, segs, b)
+    assert all(map(torch.equal, got, g1_fused.bucket_combine_plain(acc, w_count, segs, b)))
+
+
+def test_bucket_combine_rejects_bad_inputs(cuda):
+    from simpleworks_tpu_torch.ops import g1_fused
+
+    acc = combine_sums(2, 2, 4, 22, cuda)
+    with pytest.raises(ValueError):  # not contiguous
+        g1_fused.bucket_combine(tuple(a.t().contiguous().t() for a in acc), 2, 2, 4)
+    with pytest.raises(ValueError):  # planes on two devices
+        g1_fused.bucket_combine((acc[0], acc[1], acc[2].cpu()), 2, 2, 4)
+    with pytest.raises(ValueError):  # one bucket a window
+        g1_fused.bucket_combine(acc, 8, 2, 1)
 
 
 def test_default_device_is_the_card(cuda):

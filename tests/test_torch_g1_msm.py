@@ -2,15 +2,20 @@
 curve serde and pairing, limb-major point arithmetic
 (simpleworks_tpu_torch.ops.g1_limb), the MSM's bucket accumulate
 (ops.g1_fused.madd_accumulate, whose CUDA kernel runs a group's whole scan
-in one launch), the device Pippenger MSM (ops.msm_pippenger) and the
-fixed-base SRS powers (ops.srs_device).  Limb tensors are compared value
-for value and group elements exactly.
+in one launch) and bucket combine (ops.g1_fused.bucket_combine, whose CUDA
+kernel runs a group's fold and suffix passes in one launch), the device
+Pippenger MSM (ops.msm_pippenger) and the fixed-base SRS powers
+(ops.srs_device).  Limb tensors are compared value for value and group
+elements exactly.
 
 The reference's limb-major point ops run jitted on the CPU (their XLA
-Montgomery multiply), which is the JAX package's own CPU route.  Its mixed
-add is compiled once, at 64 lanes, for the madd test and the accumulate's
-scan steps; the reference's whole accumulate program is not compiled here
-(tens of seconds)."""
+Montgomery multiply), which is the JAX package's own CPU route.  Its add and
+mixed add are compiled once each, at 64 lanes, for the add and madd tests,
+the accumulate's scan steps and the combine's fold and suffix steps; the
+reference's whole accumulate program is not compiled here (tens of
+seconds)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -38,7 +43,9 @@ torch.set_num_threads(1)  # tiny tensors: more threads only contend with the oth
 
 rng = np.random.default_rng(33)
 G = G1Point.generator()
-#: the reference's mixed add, compiled once for the LANES-wide tests below
+#: the reference's add and mixed add, each compiled once for the LANES-wide
+#: tests below
+REF_ADD = jax.jit(ref_g1.add)
 REF_MADD = jax.jit(ref_g1.madd)
 LANES = 64
 DEPTH = 3
@@ -100,11 +107,11 @@ def test_packing_matches_reference():
 
 
 def test_add_and_double_match_reference():
-    cases = edge_cases()
+    cases = (edge_cases() * LANES)[:LANES]
     p = g1_limb.points_to_limb_major([a for a, _ in cases], CPU)
     q = g1_limb.points_to_limb_major([b for _, b in cases], CPU)
     got = g1_limb.add(p, q)
-    assert same_planes(got, jax.jit(ref_g1.add)(ref_planes(p), ref_planes(q)))
+    assert same_planes(got, REF_ADD(ref_planes(p), ref_planes(q)))
     assert g1_limb.points_from_limb_major(got) == [a.add(b) for a, b in cases]
     dbl = g1_limb.double(p)
     assert same_planes(dbl, jax.jit(ref_g1.double)(ref_planes(p)))
@@ -230,6 +237,144 @@ def test_accumulate_rejects_bad_inputs(accumulate_grid, bad):
         acc = g1_limb.identity(LANES - 1, CPU)
     with pytest.raises(ValueError):
         g1_fused.madd_accumulate(acc, rows, idx, valid)
+
+
+def ref_add_lanes(p, q):
+    """The reference's add on up to LANES lanes (zero-padded to its compiled
+    width; the formula is lane by lane)."""
+    n = p[0].shape[1]
+    pad = ((0, 0), (0, LANES - n))
+    out = REF_ADD(tuple(np.pad(a, pad) for a in p), tuple(np.pad(a, pad) for a in q))
+    return tuple(np.asarray(a)[:, :n] for a in out)
+
+
+def reference_combine(acc, w_count, segs, b):
+    """The reference's segment fold and two suffix passes
+    (simpleworks_tpu/ops/msm_pippenger.py accumulate_windows), one jitted
+    add a step; the halves, shifts and T0 reset are moved in numpy, so that
+    the add is the one program compiled."""
+    acc = tuple(np.asarray(a) for a in acc)
+    s = segs
+    while s > 1:
+        half = s // 2
+        t4 = tuple(a.reshape(24, w_count, s, b) for a in acc)
+        left = tuple(a[:, :, :half].reshape(24, w_count * half * b) for a in t4)
+        right = tuple(a[:, :, half:].reshape(24, w_count * half * b) for a in t4)
+        acc = ref_add_lanes(left, right)
+        s = half
+    ident = tuple(np.asarray(a).reshape(24, w_count, b) for a in ref_g1.identity(w_count * b))
+
+    def suffix_pass(t):
+        for i in range(b.bit_length() - 1):
+            k = 1 << i  # the reference's dynamic_slice_in_dim(concat(t, identity), k, b)
+            shifted = tuple(np.concatenate([a, p], axis=2)[:, :, k : k + b]
+                            .reshape(24, w_count * b) for a, p in zip(t, ident))
+            flat = tuple(a.reshape(24, w_count * b) for a in t)
+            t = tuple(a.reshape(24, w_count, b) for a in ref_add_lanes(flat, shifted))
+        return t
+
+    t = suffix_pass(tuple(a.reshape(24, w_count, b) for a in acc))
+    t = tuple(np.concatenate([i[:, :, :1], a[:, :, 1:]], axis=2) for a, i in zip(t, ident))
+    t = suffix_pass(t)
+    return tuple(a[:, :, 0] for a in t)
+
+
+def combine_points(w_count, segs, b, seed):
+    """Host bucket sums of a (W, S, b) grid, lane w·S·b + s·b + d, from a
+    pool of seed-made points.  For W = 2, S = 4, b = 8, crafted lanes: in
+    window 0 (segment 0; the other segments of these buckets the identity)
+    buckets 2 and 3 are one point (a suffix step doubles), buckets 4 and 5
+    are Q and -Q (a suffix step cancels) and bucket 6 is the identity in
+    every segment; in window 1 bucket 1 has one point in segments 0 and 2
+    (the first fold doubles), bucket 2 has P and -P in segments 1 and 3 (the
+    first fold cancels), and bucket 7 is the identity in every segment."""
+    rng = np.random.default_rng(seed)
+    pool = [G.scalar_mul(int(k)) for k in rng.integers(2, 1 << 20, size=8)]
+    pts = [pool[i] for i in rng.integers(0, len(pool), size=w_count * segs * b)]
+    if (w_count, segs, b) == (2, 4, 8):
+        ident = G1Point.identity()
+
+        def put(w, d, values):
+            for s_, v in enumerate(values):
+                pts[w * segs * b + s_ * b + d] = v
+
+        p, q = pool[0], pool[1]
+        put(0, 2, [p, ident, ident, ident])
+        put(0, 3, [p, ident, ident, ident])
+        put(0, 4, [q, ident, ident, ident])
+        put(0, 5, [q.neg(), ident, ident, ident])
+        put(0, 6, [ident] * 4)
+        put(1, 1, [p, q, p, q.neg()])
+        put(1, 2, [q, p, ident, p.neg()])
+        put(1, 7, [ident] * 4)
+    return pts
+
+
+def window_sums(pts, w_count, segs, b):
+    """Σ_d d·S_d of each window by the host point law."""
+    out = []
+    for w in range(w_count):
+        total = G1Point.identity()
+        for d in range(1, b):
+            bucket = G1Point.identity()
+            for s_ in range(segs):
+                bucket = bucket.add(pts[w * segs * b + s_ * b + d])
+            total = total.add(bucket.scalar_mul(d))
+        out.append(total)
+    return out
+
+
+@pytest.mark.parametrize("w_count,segs,b", [(1, 1, 2), (2, 4, 8), (3, 2, 16)])
+def test_bucket_combine_plain_matches_reference(w_count, segs, b):
+    pts = combine_points(w_count, segs, b, 40 + b)
+    acc = g1_limb.points_to_limb_major(pts, CPU)
+    got = g1_fused.bucket_combine_plain(acc, w_count, segs, b)
+    assert same_planes(got, reference_combine(ref_planes(acc), w_count, segs, b))
+    assert g1_limb.points_from_limb_major(got) == window_sums(pts, w_count, segs, b)
+    # the wrapper on CPU tensors is the plain version, and counts no launch
+    before = dict(g1_fused.LAUNCHES)
+    assert all(map(torch.equal, g1_fused.bucket_combine(acc, w_count, segs, b), got))
+    assert g1_fused.LAUNCHES == before
+
+
+def test_bucket_combine_crafted_lanes_hit_their_cases():
+    """The crafted buckets of combine_points meet as the doc says: equal
+    points, P and -P, and identities, as the fold's and the first suffix
+    step's operands."""
+    pts = combine_points(2, 4, 8, 48)
+    at = [[pts[w * 32 + s_ * 8 + d] for s_ in range(4)] for w in range(2) for d in range(8)]
+    w0 = [functools.reduce(G1Point.add, at[d]) for d in range(8)]
+    assert w0[2] == w0[3] != G1Point.identity()
+    assert w0[4] == w0[5].neg() != G1Point.identity() and w0[6] == G1Point.identity()
+    w1 = at[8:]
+    assert w1[1][0] == w1[1][2] and w1[2][1] == w1[2][3].neg()
+    assert all(pt == G1Point.identity() for pt in w1[7])
+
+
+@pytest.mark.parametrize("bad", ["pair", "dtype", "lanes", "segments", "buckets", "one_bucket",
+                                 "strided", "device"])
+def test_bucket_combine_rejects_bad_inputs(bad):
+    w_count, segs, b = 2, 2, 4
+    acc = g1_limb.identity(w_count * segs * b, CPU)
+    error = ValueError
+    if bad == "pair":
+        acc = acc[:2]
+    elif bad == "dtype":
+        acc, error = tuple(a.to(torch.int64) for a in acc), TypeError
+    elif bad == "lanes":
+        acc = tuple(a[:, :-1] for a in acc)
+    elif bad == "segments":
+        acc, segs = g1_limb.identity(w_count * 3 * b, CPU), 3
+    elif bad == "buckets":
+        acc, b = g1_limb.identity(w_count * segs * 6, CPU), 6
+    elif bad == "one_bucket":
+        acc, b = g1_limb.identity(w_count * segs, CPU), 1
+    elif bad == "strided":
+        acc = tuple(torch.cat([a, a], dim=1)[:, ::2] for a in acc)
+    else:
+        acc = (acc[0], acc[1], torch.empty_like(acc[2], device="meta"))
+    with pytest.raises(error):
+        g1_fused.bucket_combine(acc, w_count, segs, b)
 
 
 def test_default_accumulate_is_madd_on_every_device():
