@@ -133,10 +133,13 @@ ACCUMULATE_C = 13
 #: the MSM picks (c = 8), and the accumulate check's group
 COMBINE_LOG = 17
 #: the Fr widths of the prove's two dvec.inv (marlin/prover.py): the pow
-#: timed there, and checked against its plain version on a slice as wide as
-#: POW_SLICE (the plain pow takes ~0.8 s at that width)
+#: timed there, and checked against its plain version on its first and its
+#: last POW_SLICE lanes (the plain pow takes ~0.8 s at that width)
 POW_PROVE_LANES = (655_360, 786_432)
 POW_SLICE = 1 << 14
+#: the pow's first and last POW_HOST_LANES lanes at every shape are also held
+#: to host pow(), which shares no code with the kernel's exponent schedule
+POW_HOST_LANES = 8
 
 FIELD_SOURCE = "simpleworks_tpu_torch/csrc/field_kernels.cu"
 NTT_SOURCE = "simpleworks_tpu_torch/csrc/ntt_kernels.cu"
@@ -295,13 +298,22 @@ def check_kernels(device, fr_lanes: int = FR_LANES, fq_lanes: int = FQ_LANES,
                   pow_shapes=None, pow_prove_lanes=POW_PROVE_LANES) -> dict:
     """Each kernel against its plain version on the same inputs: exact
     equality, and both times; the pow also at the prove's widths, checked
-    on a slice."""
+    on a slice, and the ends of every pow row against host pow()."""
     import torch
 
-    from simpleworks_tpu_torch.fields.device import FQ, FR
+    from simpleworks_tpu_torch.fields.device import FQ, FR, from_mont
     from simpleworks_tpu_torch.ops import mont_mul as mm
 
     results: dict[str, list] = {name: [] for name in FIELD_KERNELS}
+
+    def check_host_pow(x, got, e, field):
+        # the last row's ends against Python's pow on the standard-form values
+        k = min(POW_HOST_LANES, x.shape[1])
+        lanes = sorted({*range(k), *range(x.shape[1] - k, x.shape[1])})
+        want = [pow(v, e, field.p) for v in from_mont(x[:, lanes].cpu(), field)]
+        row = results["mont_pow"][-1]
+        row["host_lanes"] = len(lanes)
+        row["host_equal"] = from_mont(got[:, lanes].cpu(), field) == want
 
     def record(name, shape, got, plain, ms, plain_ms):
         err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max()) if got.numel() else 0
@@ -329,9 +341,11 @@ def check_kernels(device, fr_lanes: int = FR_LANES, fq_lanes: int = FQ_LANES,
         record("mont_pow", x.shape, got, ref,
                time_ms(lambda: mm.mont_pow(x, e, field), device, inner=5, queue_ahead=True),
                time_ms(lambda: mm.mont_pow_plain(x, e, field), device, reps=3))
+        check_host_pow(x, got, e, field)
     for lanes in pow_prove_lanes:
-        # the prove's dvec.inv widths: the plain version checks (and is timed
-        # on, one run) a slice of the lanes
+        # the prove's dvec.inv widths: the plain version checks the first and
+        # the last POW_SLICE lanes (the last block's too) and is timed, one
+        # run, on the first
         x = field_inputs(FR, lanes, 4, device)
         e = FR.p - 2
         got = mm.mont_pow(x, e, FR)
@@ -340,15 +354,25 @@ def check_kernels(device, fr_lanes: int = FR_LANES, fq_lanes: int = FQ_LANES,
         ref = mm.mont_pow_plain(x[:, :POW_SLICE], e, FR)
         sync(device)
         plain_ms = (time.perf_counter() - t0) * 1e3
-        record("mont_pow", x.shape, got[:, :POW_SLICE], ref,
+        ends = torch.cat([got[:, :POW_SLICE], got[:, -POW_SLICE:]], 1)
+        ref = torch.cat([ref, mm.mont_pow_plain(x[:, -POW_SLICE:], e, FR)], 1)
+        record("mont_pow", x.shape, ends, ref,
                time_ms(lambda: mm.mont_pow(x, e, FR), device, inner=3, queue_ahead=True),
                plain_ms)
-        results["mont_pow"][-1]["plain_shape"] = list(ref.shape)
+        results["mont_pow"][-1]["plain_shape"] = [FR.n_limbs, POW_SLICE]
+        results["mont_pow"][-1]["checked_lanes"] = f"first and last {POW_SLICE}"
+        check_host_pow(x, got, e, FR)
         del x, got
     for name, rows in results.items():
         for row in rows:
             if not row["equal"]:
                 raise AssertionError(f"{name} kernel disagrees with its plain version at {row['shape']}")
+            if not row.get("host_equal", True):
+                raise AssertionError(f"{name} kernel disagrees with host pow at {row['shape']}")
+    if device.type == "cuda":
+        resources = mm.kernel_resources()
+        for row in results["mont_pow"]:
+            row.update(resources[row["shape"][0] // 2])
     return results
 
 
@@ -901,6 +925,23 @@ def profile_prove(device, sizes=SRS_SIZES, top: int = 15) -> dict:
             "top": [{"name": k[:80], "s": busy_us[k] / 1e6, "count": count[k]} for k in ranked]}
 
 
+def pow_work(exponent: int, words: int) -> dict:
+    """The Montgomery products one lane of the pow kernel runs for
+    ``exponent`` along its schedule (ops/mont_mul.py pow_schedule at
+    POW_WINDOW): x^2 and the table's multiplies, then the window's
+    squarings and multiplies.  ``ops`` counts a squaring at N(N+1)/2 + N^2
+    32-bit multiply-adds and a multiply at 2 N^2 (N = ``words``)."""
+    from simpleworks_tpu_torch.ops import mont_mul as mm
+
+    schedule = mm.pow_schedule(exponent, mm.POW_WINDOW)
+    table = mm.pow_table_size(schedule)
+    squarings = (table > 1) + (schedule[0][1] if schedule else 0)
+    multiplies = table - 1 + max(len(schedule) - 1, 0)
+    mul_ops = 2 * words * words
+    return {"squarings": squarings, "multiplies": multiplies,
+            "ops": squarings * (words * (words + 1) // 2 + words * words) + multiplies * mul_ops}
+
+
 def bound_ms(name: str, shape, clock_mhz: float, exponent: int | None = None,
              double_lanes: int = 0) -> tuple[float, str]:
     """The least time the card could take for one call at ``shape``: the
@@ -908,7 +949,8 @@ def bound_ms(name: str, shape, clock_mhz: float, exponent: int | None = None,
     once) over the memory rate and the 32-bit multiply-adds over
     SMS x IMAD_PER_SM_CLOCK x the SM clock.  A 32 x 32 -> 64-bit product
     counts as one multiply-add; a point add counts its Fq multiplies (the
-    doubling on ``double_lanes`` lanes only), not its adds and selects."""
+    doubling on ``double_lanes`` lanes only), not its adds and selects; the
+    pow counts the products of its schedule (pow_work)."""
     rows, lanes = shape
     imad_per_s = SMS * IMAD_PER_SM_CLOCK * clock_mhz * 1e6
     if name in G1_MULS:
@@ -924,7 +966,7 @@ def bound_ms(name: str, shape, clock_mhz: float, exponent: int | None = None,
         mul_ops = 2 * words * words  # CIOS: N^2 products for a·b, N^2 for m·p
         if name == "mont_pow":
             nbytes = 2 * rows * 4 * lanes
-            ops = lanes * mul_ops * (exponent.bit_length() + bin(exponent).count("1"))
+            ops = lanes * pow_work(exponent, words)["ops"]
         else:
             nbytes = 3 * rows * 4 * lanes
             ops = lanes * (mul_ops if name == "mont_mul" else 2 * words)
@@ -1187,6 +1229,9 @@ def main(argv: list[str]) -> int:
         for row in rows:
             # the pow's exponent is the Fermat one of the row's field
             exponent = (FR if row["shape"][0] == 16 else FQ).p - 2 if name == "mont_pow" else None
+            if name == "mont_pow":
+                work = pow_work(exponent, row["shape"][0] // 2)
+                row.update(squarings=work["squarings"], multiplies=work["multiplies"])
             if name == "g1_bucket_combine":
                 row["bound_ms"], row["bound_by"] = combine_bound_ms(row, clock_mhz)
             elif "depth" in row:
@@ -1204,7 +1249,8 @@ def main(argv: list[str]) -> int:
             "shape": main_row["shape"], "equal": all(r["equal"] for r in rows),
             "launches_by_path": by_path,
             "shapes": [{k: r[k] for k in ("shape", "depth", "windows", "segments", "buckets", "ms",
-                                          "plain_ms", "plain_shape", "route_ms", "bound_ms")
+                                          "plain_ms", "plain_shape", "checked_lanes", "route_ms",
+                                          "bound_ms", "registers", "local_bytes")
                         if k in r}
                        for r in rows],
         })

@@ -40,6 +40,7 @@ SIGNATURES = {
         "swt_mod_sub": _BINARY_ARGS,
         "swt_mont_pow": [ctypes.c_int, _P, _I64, _I64, _P, _I64, _P, ctypes.c_uint32, _P,
                          _P, ctypes.c_int, ctypes.c_int, _P],
+        "swt_field_kernel_resources": [_P],
     },
     "ntt_kernels": {
         "swt_ntt_reduce": [_P, _I64, _P, _I64, _P, ctypes.c_uint32, _P],

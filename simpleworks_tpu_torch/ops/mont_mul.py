@@ -17,6 +17,10 @@ column with ``.expand``; sliced views are fine, the kernels take strides):
 ``LAUNCHES`` (kept in :mod:`._build` with the NTT's count) counts kernel
 launches per op, so a run can show that its path went through the kernels;
 only a CUDA launch adds to it.
+
+The pow walks :func:`pow_schedule` (a sliding window of ``POW_WINDOW`` bits)
+on both routes: the plain version with ``mont_mul_plain``, the kernel with
+its carry-chain squaring and multiply; both give x^e mod p exactly.
 """
 
 from __future__ import annotations
@@ -26,13 +30,19 @@ from functools import lru_cache
 
 import torch
 
-from ..fields.device import FQ, FR, LIMB_BITS, LIMB_MASK, LimbField, split_words
+from ..fields.device import FQ, FR, LIMB_BITS, LIMB_MASK, LimbField
 from ._build import LAUNCHES, reset_launches
 
 __all__ = [
     "FR", "FQ", "LimbField", "LAUNCHES", "reset_launches", "mont_mul", "mod_add", "mod_sub",
     "mont_pow", "mont_mul_plain", "mod_add_plain", "mod_sub_plain", "mont_pow_plain",
+    "POW_WINDOW", "pow_schedule", "pow_table_size", "kernel_resources",
 ]
+
+#: the pow's window: its exponent's digits have at most this many bits (the
+#: kernel's table holds the odd powers below 2^4; 4 ran 1.4 % faster than 5
+#: at the prove's widths on the H100, 1.1 % slower on narrow batches)
+POW_WINDOW = 4
 
 
 # ------------------------------------------------------------ plain versions --
@@ -118,14 +128,54 @@ def mod_sub_plain(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.T
     return torch.where(borrow < 0, plus, diff).to(torch.int32)
 
 
+@lru_cache(maxsize=32)
+def pow_schedule(exponent: int, window: int) -> tuple[tuple[int, int], ...]:
+    """``exponent`` as Σ digit·2^shift over a sliding window, from the top:
+    each digit odd and below 2^window, the shifts falling; () for 0.  A pow
+    starts from the top digit's power of x, then for each later digit
+    squares (previous shift − shift) times and multiplies by x^digit, and
+    ends with as many squarings as the last shift."""
+    if exponent < 0 or window < 1:
+        raise ValueError("pow_schedule takes a non-negative exponent and a window of >= 1 bit")
+    digits = []
+    top = exponent.bit_length() - 1
+    while top >= 0:
+        if not (exponent >> top) & 1:
+            top -= 1
+            continue
+        low = max(top - window + 1, 0)
+        while not (exponent >> low) & 1:  # the window ends in a set bit: odd digit
+            low += 1
+        digits.append(((exponent >> low) & ((1 << (top - low + 1)) - 1), low))
+        top = low - 1
+    return tuple(digits)
+
+
+def pow_table_size(schedule) -> int:
+    """The odd powers x, x^3, .. that ``schedule`` reads: up to its largest
+    digit (at least one)."""
+    return max((digit for digit, _ in schedule), default=1) // 2 + 1
+
+
 def mont_pow_plain(x: torch.Tensor, exponent: int, field: LimbField) -> torch.Tensor:
-    """x^e elementwise, MSB-first square-and-multiply (0 maps to 0 for e > 0)."""
-    acc = field.one(x.shape[1], x.device)
-    for bit in bin(exponent)[2:]:
+    """x^e elementwise along ``pow_schedule(e, POW_WINDOW)`` (0 maps to 0
+    for e > 0; e = 0 gives the Montgomery one)."""
+    schedule = pow_schedule(exponent, POW_WINDOW)
+    if not schedule:
+        return field.one(x.shape[1], x.device).contiguous()
+    table, n_table = [x], pow_table_size(schedule)
+    if n_table > 1:
+        x2 = mont_mul_plain(x, x, field)
+        while len(table) < n_table:
+            table.append(mont_mul_plain(table[-1], x2, field))
+    acc = table[schedule[0][0] >> 1]
+    for (_, prev), (digit, shift) in zip(schedule, schedule[1:]):
+        for _ in range(prev - shift):
+            acc = mont_mul_plain(acc, acc, field)
+        acc = mont_mul_plain(acc, table[digit >> 1], field)
+    for _ in range(schedule[-1][1]):
         acc = mont_mul_plain(acc, acc, field)
-        if bit == "1":
-            acc = mont_mul_plain(acc, x, field)
-    return acc.contiguous()
+    return x.clone(memory_format=torch.contiguous_format) if acc is x else acc
 
 
 # ------------------------------------------------------------------ wrappers --
@@ -201,6 +251,21 @@ def mod_sub(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.Tensor:
     return _binary("mod_sub", "swt_mod_sub", a, b, field)
 
 
+@lru_cache(maxsize=32)
+def _pow_steps(exponent: int):
+    """The kernel's steps of ``pow_schedule(exponent, POW_WINDOW)``: the top
+    digit, then (squarings << 16 | digit) a later digit, then the trailing
+    squarings with digit 0 -> (uint32 array, step count, table size)."""
+    schedule = pow_schedule(exponent, POW_WINDOW)
+    steps = [digit for digit, _ in schedule[:1]]
+    for (_, prev), (digit, shift) in zip(schedule, schedule[1:]):
+        steps.append((prev - shift) << 16 | digit)
+    if schedule and schedule[-1][1]:
+        steps.append(schedule[-1][1] << 16)
+    words = (ctypes.c_uint32 * max(1, len(steps)))(*steps)
+    return words, len(steps), pow_table_size(schedule)
+
+
 def mont_pow(x: torch.Tensor, exponent: int, field: LimbField) -> torch.Tensor:
     """x^exponent elementwise on an [L, B] Montgomery limb tensor (a fixed
     exponent of at most 384 bits; the Fermat inverse is e = p − 2)."""
@@ -215,15 +280,25 @@ def mont_pow(x: torch.Tensor, exponent: int, field: LimbField) -> torch.Tensor:
     out = torch.empty((L, B), dtype=torch.int32, device=x.device)
     if B == 0:
         return out
-    n_e = max(1, (exponent.bit_length() + 31) // 32)
-    e_words = (ctypes.c_uint32 * n_e)(*split_words(exponent, n_e, 32))
+    steps, n_steps, n_table = _pow_steps(exponent)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = library().swt_mont_pow(
             field.n_words, x.data_ptr(), x.stride(0), x.stride(1), out.data_ptr(), B,
             field.p_words_ptr, field.n0_32, field.one_words_ptr,
-            ctypes.addressof(e_words), n_e, exponent.bit_length(), stream,
+            ctypes.addressof(steps), n_steps, n_table, stream,
         )
     _raise_on(rc, "mont_pow")
     LAUNCHES["mont_pow"] += 1
     return out
+
+
+def kernel_resources() -> dict:
+    """Registers and local (spill) bytes a thread of the pow kernel, by the
+    field's 32-bit words (8: Fr, 12: Fq), as the card's compiler built it."""
+    from ._build import library
+
+    out = (ctypes.c_int * 4)()
+    _raise_on(library().swt_field_kernel_resources(ctypes.addressof(out)), "field kernel attributes")
+    return {n: {"registers": out[2 * k], "local_bytes": out[2 * k + 1]}
+            for k, n in enumerate((8, 12))}

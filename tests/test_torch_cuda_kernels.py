@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from simpleworks_tpu_torch.fields.device import FQ, FR
+from simpleworks_tpu_torch.fields.device import FQ, FR, from_mont
 from simpleworks_tpu_torch.ops import mont_mul as mm
 
 pytestmark = pytest.mark.cuda
@@ -63,13 +63,85 @@ def test_strided_views_and_broadcast_columns(cuda, field):
         assert torch.equal(op(lo, col, field), plain(lo.contiguous(), col.contiguous(), field))
 
 
+#: exponents at the schedule's window edges (tests/test_torch_fields.py
+#: POW_EDGES): tiny ones, the top bit alone, all 384 bits, a run of zeros
+#: longer than a window, seeded random 384-bit values
+_EDGE_RNG = np.random.default_rng(8)
+POW_EDGES = (0, 1, 2, 3, 0xDEADBEEF12345, 1 << 383, (1 << 384) - 1,
+             (0b1011 << 40) | (1 << 21) | 0b11,
+             *(int.from_bytes(_EDGE_RNG.bytes(48), "little") for _ in range(2)))
+
+
 @pytest.mark.parametrize("field", [FR, FQ], ids=["fr", "fq"])
 def test_mont_pow_matches_plain(cuda, field):
+    """The kernel against the plain pow, which walks the same schedule, and
+    against host pow(), which does not."""
     x = rand_field(field, 300, 5, cuda)
-    for e in (0, 1, 2, 0xDEADBEEF12345, field.p - 2):
+    values = from_mont(x.cpu(), field)
+    for e in (*POW_EDGES, field.p - 2):
+        before = mm.LAUNCHES["mont_pow"]
         got = mm.mont_pow(x, e, field)
         torch.cuda.synchronize()
         assert torch.equal(got, mm.mont_pow_plain(x, e, field)), e
+        assert from_mont(got.cpu(), field) == [pow(v, e, field.p) for v in values], e
+        assert mm.LAUNCHES["mont_pow"] == before + 1
+
+
+@pytest.mark.parametrize("field", [FR, FQ], ids=["fr", "fq"])
+@pytest.mark.parametrize("side", ["narrow", "wide"])
+def test_mont_pow_both_block_sizes(cuda, field, side):
+    """Widths on both sides of the kernel's switch from one-warp blocks to
+    128-thread blocks (a wave of those over the card's SMs), each with a
+    ragged last block, at the Fermat exponent."""
+    wave = 128 * torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = wave - 1 if side == "narrow" else wave + 37
+    x = rand_field(field, n, 7, cuda)
+    got = mm.mont_pow(x, field.p - 2, field)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mm.mont_pow_plain(x, field.p - 2, field))
+
+
+@pytest.mark.parametrize("field", [FR, FQ], ids=["fr", "fq"])
+def test_mont_pow_reads_strided_columns(cuda, field):
+    """A column slice of a wider tensor (row stride > B) and every other
+    column (column stride 2) give what their copies give."""
+    wide = rand_field(field, 1200, 8, cuda)
+    for view in (wide[:, 100:700], wide[:, ::2]):
+        got = mm.mont_pow(view, field.p - 2, field)
+        torch.cuda.synchronize()
+        assert torch.equal(got, mm.mont_pow_plain(view.contiguous(), field.p - 2, field))
+
+
+def test_mont_pow_kernel_resources(cuda):
+    res = mm.kernel_resources()
+    assert set(res) == {8, 12}
+    assert all(r["registers"] > 0 and r["local_bytes"] >= 0 for r in res.values())
+
+
+def test_mont_pow_entry_rejects_bad_schedules(cuda):
+    """The C entry refuses a schedule the kernel cannot walk, and launches
+    nothing: (steps, n_table)."""
+    import ctypes
+
+    from simpleworks_tpu_torch.ops._build import library
+
+    x = rand_field(FR, 64, 9, cuda)
+    out = torch.zeros_like(x)
+    bad = (([2], 1),                 # an even top digit
+           ([1 << 16 | 1], 1),       # squarings before the top digit
+           ([1, 1 << 16 | 4], 4),    # an even later digit
+           ([1, 1 << 16 | 9], 4),    # a digit beyond the table
+           ([1], 0), ([1], 9),       # no table, a table past 8 powers
+           ([1] * 385, 1))           # more steps than a 384-bit exponent has
+    for steps, n_table in bad:
+        words = (ctypes.c_uint32 * len(steps))(*steps)
+        rc = library().swt_mont_pow(
+            FR.n_words, x.data_ptr(), x.stride(0), x.stride(1), out.data_ptr(), x.shape[1],
+            FR.p_words_ptr, FR.n0_32, FR.one_words_ptr, ctypes.addressof(words), len(steps),
+            n_table, torch.cuda.current_stream().cuda_stream)
+        assert rc != 0, (steps[:2], n_table)
+    torch.cuda.synchronize()
+    assert not out.any()
 
 
 def test_wrapper_rejects_bad_inputs(cuda):

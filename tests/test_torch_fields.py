@@ -108,6 +108,58 @@ def test_mont_pow_matches_pallas_interpret_and_host(field):
     assert got[0] == 0  # 0 maps to 0
 
 
+#: exponents at the window's edges: tiny ones, the top bit alone and all 384
+#: bits set, a run of zeros longer than any window, the two Fermat exponents
+#: and seeded random 384-bit values
+_EDGE_RNG = np.random.default_rng(8)
+POW_EDGES = {
+    "0": 0, "1": 1, "2": 2, "3": 3, "2^383": 1 << 383, "2^384-1": (1 << 384) - 1,
+    "zero_run": (0b1011 << 40) | (1 << 21) | 0b11,
+    "fr_p-2": FR.p - 2, "fq_q-2": FQ.p - 2,
+    **{f"random{k}": int.from_bytes(_EDGE_RNG.bytes(48), "little") for k in range(3)},
+}
+
+
+@pytest.mark.parametrize("window", [1, 4, 5])
+@pytest.mark.parametrize("name", list(POW_EDGES))
+def test_pow_schedule_rebuilds_exponent(name, window):
+    e = POW_EDGES[name]
+    schedule = mm.pow_schedule(e, window)
+    assert sum(digit << shift for digit, shift in schedule) == e
+    assert all(digit % 2 == 1 and digit < 1 << window for digit, _ in schedule)
+    shifts = [shift for _, shift in schedule]
+    assert shifts == sorted(shifts, reverse=True) and len(set(shifts)) == len(shifts)
+    # a digit's bits never overlap the next digit's: the windows are disjoint
+    assert all(hi - lo >= digit.bit_length() for (digit, lo), (_, hi) in
+               zip(schedule[1:], schedule))
+    assert (schedule == ()) == (e == 0)
+    assert mm.pow_table_size(schedule) == max([d for d, _ in schedule], default=1) // 2 + 1
+
+
+@pytest.mark.parametrize("field", [FR, FQ], ids=["fr", "fq"])
+def test_scheduled_plain_pow_matches_host_at_window_edges(field):
+    """The plain pow along the schedule against host pow (mod p) on 0, 1,
+    p−1 and random lanes, exact, with no launch, for the edge exponents that
+    the Fermat check above does not walk (random exponents: the schedule
+    test)."""
+    x = device.from_reference_limbs(canonical_limbs(field, 4, 9), CPU)
+    vals = device.from_mont(x, field)
+    before = dict(mm.LAUNCHES)
+    for name in ("0", "1", "2", "3", "zero_run", "2^384-1"):
+        e = POW_EDGES[name]
+        got = mm.mont_pow(x, e, field)
+        assert got.is_contiguous() and got.dtype == torch.int32, name
+        assert device.from_mont(got, field) == [pow(v, e, field.p) for v in vals], name
+    assert mm.LAUNCHES == before
+    # a strided view gives what its copy gives, and e = 1 returns a copy
+    wide = device.from_reference_limbs(canonical_limbs(field, 12, 10), CPU)
+    e = POW_EDGES["zero_run"]
+    assert torch.equal(mm.mont_pow(wide[:, 3:9], e, field),
+                       mm.mont_pow(wide[:, 3:9].contiguous(), e, field))
+    same = mm.mont_pow(wide, 1, field)
+    assert torch.equal(same, wide) and same.data_ptr() != wide.data_ptr()
+
+
 def test_wrappers_check_inputs():
     a = device.to_mont([1, 2, 3], FR, CPU)
     with pytest.raises(TypeError):
