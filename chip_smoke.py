@@ -52,10 +52,23 @@ printed as one JSON line, any failure raising:
    show that it took that route (no accumulate-kernel launch, the pow in
    the affine rows): equal bytes, and its seconds and regions beside the
    madd prove's;
-10. the card against the CPU: a square-add chain of 5 proved on both, equal
+10. the merkle path: the merkle-tree workload at the reference's parameters
+    (SimpleMerkleTree of the example's 8 leaves, Pedersen windows 4x144 /
+    4x128, SRS(100k, 25k, 300k): 15,198 constraints, n = 2^14, m = 2^15):
+    build, the membership check for leaf 1 (True) and 77 (False), prove
+    twice (equal bytes), verify (True for leaf 1, False for 77), with the
+    seconds of each step; the root, the verifying key and the proof equal
+    the JAX package's (tests/torch_fixtures/merkle_tree_reference.json);
+11. the payments path: the simple-payments demo sequence with every
+    transaction's Marlin pipeline on the card (a transfer validated and
+    applied, an overspend, a forged signature, an unknown recipient: four
+    pipelines of the schnorr circuit at SRS(100k, 25k, 300k), each verify
+    True); the verdicts, the balances (5 and 5) and the account tree's roots
+    equal the same fixture's;
+12. the card against the CPU: a square-add chain of 5 proved on both, equal
     proof bytes (the CPU path is the one the tests hold against the JAX
     package);
-11. the kernels line: each kernel's launches on each path (the counts set to
+13. the kernels line: each kernel's launches on each path (the counts set to
     0 before the path and read after it; every kernel a path runs must have
     launched there), its largest error against the plain version, its time,
     the plain version's, and the least time the card could take (bound_ms).
@@ -126,6 +139,13 @@ PIN_SRS_SIZES = (16, 16, 32)
 #: prove (tests/test_torch_bench_fixture.py makes and checks the file)
 REFERENCE_FIXTURE = Path(__file__).resolve().parent / "tests" / "torch_fixtures" / \
     "schnorr_bench_reference.json"
+#: the JAX package's results of the merkle-tree and simple-payments workloads
+#: (tests/test_torch_merkle_fixture.py makes and checks the file)
+WORKLOAD_FIXTURE = REFERENCE_FIXTURE.parent / "merkle_tree_reference.json"
+#: the payments path: the Marlin pipelines each step of the sequence runs
+#: (the forged signature fails the native check first, so runs none)
+PAYMENTS_PIPELINES = {"sample": 0, "register": 0, "transfer_validate": 1, "transfer_apply": 1,
+                      "overspend": 1, "forged_signature": 0, "unknown_recipient": 1}
 #: the accumulate check: the c = 13 group of a 2^20-point MSM
 ACCUMULATE_LOG = 20
 ACCUMULATE_C = 13
@@ -217,6 +237,17 @@ def time_ms(fn, device, reps: int = 5, inner: int = 1, queue_ahead: bool = False
                 fn()
             runs.append((time.perf_counter() - t0) * 1e3 / inner)
     return statistics.median(runs)
+
+
+def timed_step(device, steps: dict, name: str, fn):
+    """``fn()``, its seconds (the device synchronised around it) into
+    ``steps[name]``."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    steps[name] = time.perf_counter() - t0
+    return out
 
 
 def field_inputs(field, n: int, seed: int, device):
@@ -701,22 +732,13 @@ def run_marlin(device, build=schnorr_circuit, public=(), sizes=SRS_SIZES, refere
     from simpleworks_tpu_torch.utils.observability import PROVER_TIMER
 
     steps_s: dict[str, float] = {}
-
-    def timed(name, fn):
-        sync(device)
-        t0 = time.perf_counter()
-        out = fn()
-        sync(device)
-        steps_s[name] = time.perf_counter() - t0
-        return out
-
     public = list(public)
-    cs = timed("synthesis_s", build)
-    srs = timed("setup_s", lambda: marlin.universal_setup(*sizes, marlin.generate_rand(),
-                                                          device=device))
+    cs = timed_step(device, steps_s, "synthesis_s", build)
+    srs = timed_step(device, steps_s, "setup_s", lambda: marlin.universal_setup(
+        *sizes, marlin.generate_rand(), device=device))
     PROVER_TIMER.reset()
     PROVER_TIMER.synchronize = True
-    pk, vk = timed("index_s", lambda: marlin.index(srs, cs))
+    pk, vk = timed_step(device, steps_s, "index_s", lambda: marlin.index(srs, cs))
     index_regions = dict(PROVER_TIMER.totals)
     info = vk.info
     expected = ahp.max_degree_for(*sizes)
@@ -724,10 +746,10 @@ def run_marlin(device, build=schnorr_circuit, public=(), sizes=SRS_SIZES, refere
         raise AssertionError(f"SRS degree {srs.max_degree} != {expected}")
     shape = {"n": info.domain_h_size, "m": info.domain_k_size, "ell": info.num_instance_padded,
              "constraints": info.num_constraints, "non_zero": info.num_non_zero}
-    proof_cold = timed("prove_cold_s", lambda: marlin.prove(pk, cs))
+    proof_cold = timed_step(device, steps_s, "prove_cold_s", lambda: marlin.prove(pk, cs))
     PROVER_TIMER.reset()
     before = dict(LAUNCHES)
-    proof = timed("prove_warm_s", lambda: marlin.prove(pk, cs))
+    proof = timed_step(device, steps_s, "prove_warm_s", lambda: marlin.prove(pk, cs))
     warm_launches = {k: v - before[k] for k, v in LAUNCHES.items()}
     regions = dict(PROVER_TIMER.totals)
     PROVER_TIMER.synchronize = False
@@ -738,7 +760,7 @@ def run_marlin(device, build=schnorr_circuit, public=(), sizes=SRS_SIZES, refere
         reference, serialize_verifying_key(vk), proof_bytes)
     if keep is not None:
         keep.update(pk=pk, cs=cs, proof=proof_bytes)
-    accepted = timed("verify_s", lambda: marlin.verify(vk, public, proof))
+    accepted = timed_step(device, steps_s, "verify_s", lambda: marlin.verify(vk, public, proof))
     bad_evals = dict(proof.evaluations)
     bad_evals["w"] = (bad_evals["w"] + 1) % FR_MODULUS
     tampered = dataclasses.replace(proof, evaluations=bad_evals)
@@ -883,6 +905,130 @@ def run_pin(device, steps: int = PIN_STEPS, sizes=PIN_SRS_SIZES) -> dict:
         raise AssertionError("proof bytes differ between the card and the CPU")
     return {"steps": steps, "srs_sizes": list(sizes), "proof_bytes": len(out["cuda"]),
             "equal_bytes": True}
+
+
+@contextlib.contextmanager
+def calls_timed(device, targets: dict):
+    """While the block runs, each function ``targets[key] = (module,
+    attribute)`` appends ``(seconds, result)`` of each of its calls to the
+    yielded ``calls[key]``, the device synchronised around the call (a
+    result that is not a bool is kept as None)."""
+    saved = {key: getattr(mod, attr) for key, (mod, attr) in targets.items()}
+    calls: dict[str, list] = {key: [] for key in targets}
+
+    def timing(key, fn):
+        def wrapper(*args, **kwargs):
+            sync(device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync(device)
+            calls[key].append((time.perf_counter() - t0, out if isinstance(out, bool) else None))
+            return out
+        return wrapper
+
+    for key, (mod, attr) in targets.items():
+        setattr(mod, attr, timing(key, saved[key]))
+    try:
+        yield calls
+    finally:
+        for key, (mod, attr) in targets.items():
+            setattr(mod, attr, saved[key])
+
+
+def run_merkle(device, reference=None, leaves=None, **tree_kwargs) -> dict:
+    """The merkle-tree workload, through the demo CLI's sequence
+    (examples/run.py ``merkle_tree_sequence``, which raises on a wrong
+    membership check or verdict), each step timed; then a second (warm)
+    prove whose bytes must equal the first's, since each prove draws a fresh
+    test_rng().  The build is split into its one ``universal_setup``, its
+    one ``index`` and the rest (Pedersen parameters, both trees, the blank
+    tree's circuit).  With ``reference`` (the fixture's ``merkle``), the
+    root, the verifying key and the proof must equal its.  ``tree_kwargs``
+    go to SimpleMerkleTree (the reference's parameters when empty).  Raises
+    on a wrong result."""
+    from simpleworks_tpu_torch import marlin
+    from simpleworks_tpu_torch.examples.merkle_tree import EXAMPLE_LEAVES
+    from simpleworks_tpu_torch.examples.run import merkle_tree_sequence
+    from simpleworks_tpu_torch.marlin.serialization import serialize_verifying_key
+    from simpleworks_tpu_torch.utils.observability import PROVER_TIMER
+
+    leaves = EXAMPLE_LEAVES if leaves is None else leaves
+    steps: dict[str, float] = {}
+    targets = {key: (marlin, key) for key in ("universal_setup", "index", "prove")}
+    with calls_timed(device, targets) as calls:
+        out = merkle_tree_sequence(lambda key, _label, fn: timed_step(device, steps, f"{key}_s", fn),
+                                   leaves, device=device, **tree_kwargs)
+        tree, cold = out["tree"], out["proof"]
+        PROVER_TIMER.reset()
+        PROVER_TIMER.synchronize = True
+        warm = timed_step(device, steps, "prove_warm_s", lambda: tree.prove(leaves[0], out["path"]))
+        regions = dict(PROVER_TIMER.totals)
+        PROVER_TIMER.synchronize = False
+    counts = {key: len(rows) for key, rows in calls.items()}
+    if counts != {"universal_setup": 1, "index": 1, "prove": 2}:
+        raise AssertionError(f"the merkle path's Marlin calls {counts}: the build's split "
+                             "and the proves' times would be wrong")
+    (steps["setup_s"], _), = calls["universal_setup"]
+    (steps["index_s"], _), = calls["index"]
+    steps["tree_s"] = steps["build_s"] - steps["setup_s"] - steps["index_s"]
+    # each prove step synthesises the circuit, then runs marlin.prove
+    steps["marlin_prove_s"], steps["marlin_prove_warm_s"] = (t for t, _ in calls["prove"])
+    if cold != warm:
+        raise AssertionError("the merkle path's cold and warm proofs differ")
+    root = hex(tree.tree.root())
+    same = None
+    if reference is not None:
+        if root != reference["root"]:
+            raise AssertionError(f"the tree's root {root} differs from the reference's")
+        same = check_reference(reference, serialize_verifying_key(tree.verifying_key), warm)
+    info = tree.verifying_key.info
+    return {"leaves": list(leaves), "root": root,
+            "shape": {"n": info.domain_h_size, "m": info.domain_k_size,
+                      "ell": info.num_instance_padded, "constraints": info.num_constraints,
+                      "non_zero": info.num_non_zero},
+            "srs_max_degree": tree.proving_key.srs.max_degree, "steps": steps,
+            "prove_warm_regions": regions, "proof_bytes": len(warm), "reference": same}
+
+
+def run_payments(device, reference=None, prove_transactions: bool = True) -> dict:
+    """The simple-payments workload, through the demo CLI's sequence
+    (examples/run.py ``simple_payments_sequence``, which raises on a wrong
+    verdict or balance), each step timed.  With ``prove_transactions`` every
+    validate whose native signature check passes runs the per-transaction
+    Marlin pipeline (setup, index, prove, verify of the schnorr circuit) on
+    ``device``: four pipelines, each verify True (the proofs' bytes are not
+    held to a fixture here; the Marlin path holds that circuit's).  With
+    ``reference`` (the fixture's ``payments``), the verdicts, balances and
+    roots must equal its.  Raises on a wrong result."""
+    from simpleworks_tpu_torch import marlin
+    from simpleworks_tpu_torch.examples.run import simple_payments_sequence
+
+    steps: dict[str, float] = {}
+    pipelines: dict[str, int] = {}
+    targets = {key: (marlin, key) for key in ("universal_setup", "index", "prove", "verify")}
+    with calls_timed(device, targets) as calls:
+
+        def step(key, _label, fn):
+            before = len(calls["universal_setup"])
+            out = timed_step(device, steps, f"{key}_s", fn)
+            pipelines[key] = len(calls["universal_setup"]) - before
+            return out
+
+        out = simple_payments_sequence(step, prove_transactions, device=device)
+    expected = PAYMENTS_PIPELINES if prove_transactions else dict.fromkeys(PAYMENTS_PIPELINES, 0)
+    marlin_verdicts = [ok for _, ok in calls["verify"]]
+    if pipelines != expected or marlin_verdicts != [True] * sum(expected.values()):
+        raise AssertionError(f"the payments path ran Marlin pipelines {pipelines} "
+                             f"(expected {expected}) with verdicts {marlin_verdicts}")
+    if reference is not None:
+        for key in ("verdicts", "balances", "roots"):
+            if out[key] != reference[key]:
+                raise AssertionError(f"the payments path's {key} {out[key]} differ from the "
+                                     f"reference's {reference[key]}")
+    return {"accounts": 32, "prove_transactions": prove_transactions, **out,
+            "pipelines": pipelines, "marlin_verify": marlin_verdicts, "steps": steps,
+            "pipeline_s": {key: [t for t, _ in rows] for key, rows in calls.items()},
+            "reference_equal": None if reference is None else True}
 
 
 def profile_prove(device, sizes=SRS_SIZES, top: int = 15) -> dict:
@@ -1037,17 +1183,8 @@ def run_slice(device, max_degree: int = MAX_DEGREE, polys=POLYS,
     from simpleworks_tpu_torch.utils.rng import test_rng
 
     steps: dict[str, float] = {}
-
-    def timed(name, fn):
-        sync(device)
-        t0 = time.perf_counter()
-        out = fn()
-        sync(device)
-        steps[name] = time.perf_counter() - t0
-        return out
-
     rng = test_rng()
-    srs = timed("setup_s", lambda: kzg10.setup(max_degree, rng, device=device))
+    srs = timed_step(device, steps, "setup_s", lambda: kzg10.setup(max_degree, rng, device=device))
     if srs.max_degree != max_degree:
         raise AssertionError(f"SRS degree {srs.max_degree} != {max_degree}")
     tau = Fr.rand(test_rng()).value  # the setup's first draw
@@ -1059,17 +1196,17 @@ def run_slice(device, max_degree: int = MAX_DEGREE, polys=POLYS,
     labeled, rands = [], []
     for seed, (name, width, bound, hiding) in enumerate(polys):
         poly = random_poly(width, seed, device)
-        out = timed(f"commit_{name}_s", lambda: kzg10.commit(
+        out = timed_step(device, steps, f"commit_{name}_s", lambda: kzg10.commit(
             srs, poly, degree_bound=bound, hiding_rng=rng if hiding else None))
         comm, rand = out if hiding else (out, None)
         labeled.append([poly, comm, None, bound])
         rands.append(rand)
     point, xi = Fr.rand(rng).value, Fr.rand(rng).value
-    values = timed("evaluate_s", lambda: [dvec.scalar_to_int(dvec.evaluate(p, point))
-                                          for p, *_ in labeled])
+    values = timed_step(device, steps, "evaluate_s", lambda: [
+        dvec.scalar_to_int(dvec.evaluate(p, point)) for p, *_ in labeled])
     for entry, v in zip(labeled, values):
         entry[2] = v
-    witness, random_v = timed("batch_open_s", lambda: kzg10.batch_open(
+    witness, random_v = timed_step(device, steps, "batch_open_s", lambda: kzg10.batch_open(
         srs, [tuple(e) for e in labeled], point, xi, rands))
 
     shift_powers = {b: srs.power(srs.max_degree - b) for *_, b in labeled if b is not None}
@@ -1081,7 +1218,7 @@ def run_slice(device, max_degree: int = MAX_DEGREE, polys=POLYS,
             point, witness, xi, gamma_g=srs.gamma_g, random_v=random_v,
             shift_powers=shift_powers)
 
-    accepted = timed("batch_check_s", lambda: check(values))
+    accepted = timed_step(device, steps, "batch_check_s", lambda: check(values))
     tampered = list(values)
     tampered[0] = (tampered[0] + 1) % P
     rejected = not check(tampered)
@@ -1089,7 +1226,7 @@ def run_slice(device, max_degree: int = MAX_DEGREE, polys=POLYS,
         raise AssertionError(f"batch_check: accepted={accepted}, rejected tampered={rejected}")
 
     small = random_poly(host_check_width, len(polys), device)
-    comm = timed("host_check_commit_s", lambda: kzg10.commit(srs, small))
+    comm = timed_step(device, steps, "host_check_commit_s", lambda: kzg10.commit(srs, small))
     expected = msm([srs.power(i) for i in range(host_check_width)], dvec.to_ints(small))
     if comm.comm != expected:
         raise AssertionError("device commitment differs from the host MSM over the SRS")
@@ -1122,6 +1259,7 @@ def main(argv: list[str]) -> int:
         return 1
     device = torch.device("cuda", 0)
     reference = json.loads(REFERENCE_FIXTURE.read_text())
+    workloads = json.loads(WORKLOAD_FIXTURE.read_text())
 
     print(smi("name,power.limit"), flush=True)
     clock_mhz = float(smi("clocks.max.sm").split()[0])
@@ -1147,12 +1285,14 @@ def main(argv: list[str]) -> int:
         read just after; every kernel of ``path`` must have launched."""
         _build.reset_launches()
         torch.cuda.reset_peak_memory_stats(device)
+        start_bytes = torch.cuda.memory_allocated(device)  # what earlier paths still hold
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize(device)
         result["seconds"] = time.perf_counter() - t0
         result["launches"] = dict(_build.LAUNCHES)
         result["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+        result["start_memory_bytes"] = start_bytes
         idle = [k for k in path if result["launches"][k] <= 0]
         if idle:
             raise AssertionError(f"kernels never launched on the {label} path: {idle}")
@@ -1217,6 +1357,16 @@ def main(argv: list[str]) -> int:
     emit({"marlin_affine": drive_affine_prove(
         lambda: run_affine_prove(device, kept["pk"], kept["cs"], kept["proof"]),
         paths["marlin"])})
+    # the two workloads at the reference's parameters; the merkle tree's SRS
+    # draws the Marlin path's tau and gamma, so it is built anew, not read
+    # from the memo
+    kzg10._SRS_MEMO.clear()
+    paths["merkle"] = drive_counting_pow(
+        "merkle", prover, lambda: run_merkle(device, reference=workloads["merkle"]))
+    emit({"merkle": paths["merkle"]})
+    paths["payments"] = drive_counting_pow(
+        "payments", prover, lambda: run_payments(device, reference=workloads["payments"]))
+    emit({"payments": paths["payments"]})
     emit({"pin": run_pin(device)})
 
     from simpleworks_tpu_torch.fields.device import FQ, FR

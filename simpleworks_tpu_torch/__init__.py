@@ -14,6 +14,11 @@ Module paths mirror the JAX package:
   (``g1_limb``), the device Pippenger MSM (``msm_pippenger``) and the SRS
   fixed-base powers (``srs_device``)
 * ``kzg``     — KZG10 setup / commit / batch open / batch check
+* ``hash``    — Blake2s, Poseidon (native and gadget), Pedersen and its gadget
+* ``merkle``  — the Pedersen Merkle tree, its membership circuit and the
+  self-proving ``SimpleMerkleTree``
+* ``elgamal``, ``config`` — ElGamal over ed-on-bls12-377, the typed defaults
+* ``examples`` — the reference workloads and their demo driver (``run``)
 * ``utils``   — the ChaCha ``test_rng``
 """
 
