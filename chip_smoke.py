@@ -59,16 +59,30 @@ printed as one JSON line, any failure raising:
     twice (equal bytes), verify (True for leaf 1, False for 77), with the
     seconds of each step; the root, the verifying key and the proof equal
     the JAX package's (tests/torch_fixtures/merkle_tree_reference.json);
-11. the payments path: the simple-payments demo sequence with every
-    transaction's Marlin pipeline on the card (a transfer validated and
-    applied, an overspend, a forged signature, an unknown recipient: four
-    pipelines of the schnorr circuit at SRS(100k, 25k, 300k), each verify
-    True); the verdicts, the balances (5 and 5) and the account tree's roots
-    equal the same fixture's;
-12. the card against the CPU: a square-add chain of 5 proved on both, equal
+11. the payments path: the simple-payments demo sequence (a transfer
+    validated and applied, an overspend, a forged signature, an unknown
+    recipient) with the Marlin pipeline of the transfer's validate and of
+    the unknown recipient's on the card (the schnorr circuit at SRS(100k,
+    25k, 300k), each verify True); the verdicts, the balances (5 and 5) and
+    the account tree's roots equal the same fixture's;
+12. the block path: State.validate_block(prove=True) on a 32-account ledger
+    at the reference's parameters and a block of seven transactions (four
+    valid transfers from four senders, a forged signature, an overspend, an
+    unregistered recipient): the verdicts [T, T, T, T, F, F, F], one
+    satisfiability batch of the seven schnorr circuits on the card, one
+    SRS(100k, 25k, 300k), and the four proofs indexed and proved in the
+    proof pipeline, each verify True, the first and the last equal byte for
+    byte to a serial prove; the seconds of each stage and the pipeline's
+    overlap;
+13. the pipeline path: the demo CLI's proof-pipeline sequence at --full,
+    eight manual-constraints circuits proved as a stream and verified;
+14. the sharded path: the chain path's circuit proved unsharded and with the
+    prover's transforms and commits sharded over the card repeated four
+    times: equal bytes, both sharded routes called;
+15. the card against the CPU: a square-add chain of 5 proved on both, equal
     proof bytes (the CPU path is the one the tests hold against the JAX
     package);
-13. the kernels line: each kernel's launches on each path (the counts set to
+16. the kernels line: each kernel's launches on each path (the counts set to
     0 before the path and read after it; every kernel a path runs must have
     launched there), its largest error against the plain version, its time,
     the plain version's, and the least time the card could take (bound_ms).
@@ -142,10 +156,24 @@ REFERENCE_FIXTURE = Path(__file__).resolve().parent / "tests" / "torch_fixtures"
 #: the JAX package's results of the merkle-tree and simple-payments workloads
 #: (tests/test_torch_merkle_fixture.py makes and checks the file)
 WORKLOAD_FIXTURE = REFERENCE_FIXTURE.parent / "merkle_tree_reference.json"
-#: the payments path: the Marlin pipelines each step of the sequence runs
-#: (the forged signature fails the native check first, so runs none)
-PAYMENTS_PIPELINES = {"sample": 0, "register": 0, "transfer_validate": 1, "transfer_apply": 1,
-                      "overspend": 1, "forged_signature": 0, "unknown_recipient": 1}
+#: the payments path: the Marlin pipelines each step of the sequence runs.
+#: The CLI's sequence runs one at each of the four validates whose native
+#: signature check passes; the path keeps two of them, a passing and a
+#: failing verdict, to hold the script inside its time (the block path
+#: proves the same circuit six times)
+PAYMENTS_PIPELINES = {"sample": 0, "register": 0, "transfer_validate": 1, "transfer_apply": 0,
+                      "overspend": 0, "forged_signature": 0, "unknown_recipient": 1}
+#: the block path: a 32-account ledger at the reference's parameters, five
+#: accounts registered with BLOCK_BALANCE each, and a block of four valid
+#: transfers from four senders, then a signature made with another account's
+#: key, an overspend and a transfer to an unregistered account
+BLOCK_ACCOUNTS = 32
+BLOCK_REGISTERED = 5
+BLOCK_BALANCE = 10
+BLOCK_VERDICTS = [True, True, True, True, False, False, False]
+#: the sharded path: the chain path's circuit proved with the prover's
+#: transforms and commits sharded over the card repeated this many times
+SHARDS = 4
 #: the accumulate check: the c = 13 group of a 2^20-point MSM
 ACCUMULATE_LOG = 20
 ACCUMULATE_C = 13
@@ -993,11 +1021,13 @@ def run_merkle(device, reference=None, leaves=None, **tree_kwargs) -> dict:
 def run_payments(device, reference=None, prove_transactions: bool = True) -> dict:
     """The simple-payments workload, through the demo CLI's sequence
     (examples/run.py ``simple_payments_sequence``, which raises on a wrong
-    verdict or balance), each step timed.  With ``prove_transactions`` every
-    validate whose native signature check passes runs the per-transaction
+    verdict or balance), each step timed.  With ``prove_transactions`` the
+    validates of the steps PAYMENTS_PIPELINES names run the per-transaction
     Marlin pipeline (setup, index, prove, verify of the schnorr circuit) on
-    ``device``: four pipelines, each verify True (the proofs' bytes are not
-    held to a fixture here; the Marlin path holds that circuit's).  With
+    ``device`` (the sequence's ``Parameters.prove_transactions`` set before
+    each step; the verdicts, balances and roots do not depend on it): two
+    pipelines, each verify True (the proofs' bytes are not held to a fixture
+    here; the Marlin path holds that circuit's).  With
     ``reference`` (the fixture's ``payments``), the verdicts, balances and
     roots must equal its.  Raises on a wrong result."""
     from simpleworks_tpu_torch import marlin
@@ -1005,13 +1035,18 @@ def run_payments(device, reference=None, prove_transactions: bool = True) -> dic
 
     steps: dict[str, float] = {}
     pipelines: dict[str, int] = {}
+    held: dict = {}  # the sequence's Parameters, once sampled
     targets = {key: (marlin, key) for key in ("universal_setup", "index", "prove", "verify")}
     with calls_timed(device, targets) as calls:
 
         def step(key, _label, fn):
+            if "pp" in held:
+                held["pp"].prove_transactions = prove_transactions and bool(PAYMENTS_PIPELINES[key])
             before = len(calls["universal_setup"])
             out = timed_step(device, steps, f"{key}_s", fn)
             pipelines[key] = len(calls["universal_setup"]) - before
+            if key == "sample":
+                held["pp"] = out
             return out
 
         out = simple_payments_sequence(step, prove_transactions, device=device)
@@ -1029,6 +1064,176 @@ def run_payments(device, reference=None, prove_transactions: bool = True) -> dic
             "pipelines": pipelines, "marlin_verify": marlin_verdicts, "steps": steps,
             "pipeline_s": {key: [t for t, _ in rows] for key, rows in calls.items()},
             "reference_equal": None if reference is None else True}
+
+
+def make_block(device):
+    """The block path's ledger and block, from test_rng(): Parameters.sample
+    (the reference's Pedersen windows and SRS scale), BLOCK_REGISTERED
+    accounts holding BLOCK_BALANCE each, and the seven transactions of
+    BLOCK_VERDICTS."""
+    from simpleworks_tpu_torch.examples.simple_payments.account import AccountId
+    from simpleworks_tpu_torch.examples.simple_payments.ledger import Parameters, State
+    from simpleworks_tpu_torch.examples.simple_payments.transaction import Transaction
+    from simpleworks_tpu_torch.utils.rng import test_rng
+
+    rng = test_rng()
+    pp = Parameters.sample(rng, prove_transactions=True, device=device)
+    state = State(BLOCK_ACCOUNTS, pp)
+    accounts = []
+    for _ in range(BLOCK_REGISTERED):
+        acc_id, _pk, sk = state.sample_keys_and_register(pp, rng)
+        state.update_balance(acc_id, BLOCK_BALANCE)
+        accounts.append((acc_id, sk))
+    (a1, k1), (a2, k2), (a3, k3), (a4, k4), (a5, _k5) = accounts
+    transfers = [(a1, a2, 5, k1), (a2, a3, 5, k2), (a3, a4, 5, k3), (a4, a5, 5, k4),
+                 (a5, a1, 5, k1),                                  # signed with account 1's key
+                 (a1, a2, BLOCK_BALANCE + 1, k1),                  # an overspend
+                 (a2, AccountId(BLOCK_ACCOUNTS - 2), 5, k2)]       # an unregistered recipient
+    block = [Transaction.create(pp, frm, to, amount, sk, rng) for frm, to, amount, sk in transfers]
+    return pp, state, block
+
+
+def run_block(device) -> dict:
+    """State.validate_block(prove=True) on the block path's block: the host
+    checks and the schnorr circuit's synthesis for each transaction, one
+    satisfiability batch on the card, one SRS, and the pipelined index and
+    prove of the four valid transactions.  Checks the verdicts, that each of
+    the four proofs passed marlin.verify, and that the first and the last
+    equal, byte for byte, a serial marlin.prove of the same circuit with the
+    same rng; returns the seconds of each stage and the pipeline's stats.
+    Raises on a wrong result."""
+    from simpleworks_tpu_torch import marlin
+    from simpleworks_tpu_torch.marlin.serialization import serialize_proof
+    from simpleworks_tpu_torch.parallel import proof_pipeline, witness_dp
+    from simpleworks_tpu_torch.utils.rng import test_rng
+
+    pp, state, block = make_block(device)
+    seen: dict = {}
+    stream, check = proof_pipeline.prove_indexed_stream, witness_dp.sharded_check_host
+
+    def checking(*args, **kwargs):
+        seen["host_s"] = time.perf_counter() - t0  # the host checks and the syntheses
+        return check(*args, **kwargs)
+
+    def streaming(srs, circuits, **kwargs):
+        seen.update(srs=srs, circuits=list(circuits))
+        results, seen["stats"] = stream(srs, seen["circuits"], with_stats=True, **kwargs)
+        return results
+
+    targets = {"universal_setup": (marlin, "universal_setup"), "verify": (marlin, "verify"),
+               "sharded_check_host": (witness_dp, "sharded_check_host")}
+    proof_pipeline.prove_indexed_stream, witness_dp.sharded_check_host = streaming, checking
+    try:
+        with calls_timed(device, targets) as calls:
+            sync(device)
+            t0 = time.perf_counter()
+            verdicts, proofs = state.validate_block(pp, block, prove=True, rng=test_rng())
+            sync(device)
+            block_s = time.perf_counter() - t0
+    finally:
+        proof_pipeline.prove_indexed_stream, witness_dp.sharded_check_host = stream, check
+    if verdicts != BLOCK_VERDICTS:
+        raise AssertionError(f"the block's verdicts {verdicts}, expected {BLOCK_VERDICTS}")
+    marlin_verdicts = [ok for _, ok in calls["verify"]]
+    valid = BLOCK_VERDICTS.count(True)
+    if marlin_verdicts != [True] * valid or [p is not None for p in proofs] != BLOCK_VERDICTS:
+        raise AssertionError(f"the block's proofs: verify {marlin_verdicts}, "
+                             f"{sum(p is not None for p in proofs)} proofs")
+    serial_s = []
+    for k in (0, valid - 1):  # the first and the last proof, proved again serially
+        cs = seen["circuits"][k]
+        pk, _ = marlin.index(seen["srs"], cs)
+        sync(device)
+        t1 = time.perf_counter()
+        serial = serialize_proof(marlin.prove(pk, cs, test_rng()))
+        sync(device)
+        serial_s.append(time.perf_counter() - t1)
+        if serial != proofs[k]:
+            raise AssertionError(f"the block's proof {k} differs from its serial prove")
+    stats = seen["stats"]
+    info = marlin.index(seen["srs"], seen["circuits"][0])[1].info
+    (setup_s, _), = calls["universal_setup"]
+    (batch_s, _), = calls["sharded_check_host"]
+    return {"transactions": len(block), "verdicts": verdicts, "marlin_verify": marlin_verdicts,
+            "proof_bytes": [len(p) for p in proofs if p is not None],
+            "serial_equal": [0, valid - 1],
+            "shape": {"n": info.domain_h_size, "m": info.domain_k_size,
+                      "constraints": info.num_constraints, "non_zero": info.num_non_zero},
+            "srs_max_degree": seen["srs"].max_degree,
+            "steps": {"block_s": block_s, "host_checks_and_synthesis_s": seen["host_s"],
+                      "r1cs_batch_s": batch_s, "setup_s": setup_s,
+                      "pipeline_wall_s": stats.wall_seconds,
+                      "index_stage_busy_s": stats.stage_wall["index"],
+                      "prove_stage_busy_s": stats.stage_wall["prove"],
+                      "overlap_s": stats.overlap_seconds, "speedup": stats.speedup,
+                      "serial_prove_s": serial_s}}
+
+
+def run_pipeline(device, full: bool = True) -> dict:
+    """The demo CLI's proof-pipeline sequence (examples/run.py
+    ``proof_pipeline_sequence``, which raises unless every proof verifies),
+    each step timed, with the pipeline's stats."""
+    from simpleworks_tpu_torch.examples.run import PIPELINE_VALUES, proof_pipeline_sequence
+
+    steps: dict[str, float] = {}
+    values = PIPELINE_VALUES[full]
+    out = proof_pipeline_sequence(lambda key, _label, fn: timed_step(device, steps, f"{key}_s", fn),
+                                  values, device=device)
+    stats = out["stats"]
+    if stats.items != len(values):
+        raise AssertionError(f"the pipeline proved {stats.items} of {len(values)} circuits")
+    return {"proofs": len(out["proofs"]), "verified": len(values), "steps": steps,
+            "stats": {"wall_s": stats.wall_seconds, "synth_busy_s": stats.synth_busy_seconds,
+                      "prove_busy_s": stats.prove_busy_seconds,
+                      "overlap_s": stats.overlap_seconds, "speedup": stats.speedup}}
+
+
+def run_sharded(device, steps: int = CHAIN_STEPS, sizes=CHAIN_SRS_SIZES, shards: int = SHARDS,
+                thresholds=None) -> dict:
+    """The chain path's circuit proved unsharded, then with the prover's
+    transforms and commits routed over ``[device] * shards``
+    (ops.accel.set_prover_devices): equal bytes, and the sharded NTT and MSM
+    each called.  ``thresholds`` (NTT, MSM) replace accel's for the call
+    (small circuits on the CPU).  On one card this is a check of the
+    routing, not a speed figure."""
+    from simpleworks_tpu_torch import marlin
+    from simpleworks_tpu_torch.marlin.serialization import serialize_proof
+    from simpleworks_tpu_torch.ops import accel
+    from simpleworks_tpu_torch.parallel import msm_sharded, ntt_sharded
+
+    cs = square_add_chain(steps)
+    srs = marlin.universal_setup(*sizes, marlin.generate_rand(), device=device)
+    pk, vk = marlin.index(srs, cs)
+    seconds = {}
+    proofs = {}
+    targets = {"ntt": (ntt_sharded, "sharded_transform"), "msm": (msm_sharded, "sharded_msm")}
+    saved = (accel.SHARDED_NTT_THRESHOLD, accel.SHARDED_MSM_THRESHOLD)
+    with calls_timed(device, targets) as calls:
+        proofs["unsharded"] = timed_step(device, seconds, "prove_s",
+                                         lambda: marlin.prove(pk, cs))
+        unsharded_calls = {key: len(rows) for key, rows in calls.items()}
+        if thresholds is not None:
+            accel.SHARDED_NTT_THRESHOLD, accel.SHARDED_MSM_THRESHOLD = thresholds
+        accel.set_prover_devices([device] * shards)
+        try:
+            proofs["sharded"] = timed_step(device, seconds, "prove_sharded_s",
+                                           lambda: marlin.prove(pk, cs))
+        finally:
+            accel.set_prover_devices(None)
+            accel.SHARDED_NTT_THRESHOLD, accel.SHARDED_MSM_THRESHOLD = saved
+    counts = {key: len(rows) for key, rows in calls.items()}
+    if any(unsharded_calls.values()) or not all(counts.values()):
+        raise AssertionError(f"sharded routes called {unsharded_calls} unsharded and {counts} "
+                             "sharded: the check would be vacuous")
+    unsharded, sharded = (serialize_proof(proofs[k]) for k in ("unsharded", "sharded"))
+    if sharded != unsharded:
+        raise AssertionError("the sharded prove's bytes differ from the unsharded prove's")
+    if not marlin.verify(vk, [PUBLIC_INPUT], proofs["sharded"]):
+        raise AssertionError("the sharded prove's proof does not verify")
+    return {"shards": shards, "n": vk.info.domain_h_size, "m": vk.info.domain_k_size,
+            "thresholds": list(thresholds or saved), "sharded_calls": counts,
+            "sharded_s": {key: sum(t for t, _ in rows) for key, rows in calls.items()},
+            "equal_bytes": True, "verify": True, "steps": seconds}
 
 
 def profile_prove(device, sizes=SRS_SIZES, top: int = 15) -> dict:
@@ -1261,6 +1466,7 @@ def main(argv: list[str]) -> int:
     reference = json.loads(REFERENCE_FIXTURE.read_text())
     workloads = json.loads(WORKLOAD_FIXTURE.read_text())
 
+    script_t0 = time.perf_counter()
     print(smi("name,power.limit"), flush=True)
     clock_mhz = float(smi("clocks.max.sm").split()[0])
 
@@ -1367,7 +1573,20 @@ def main(argv: list[str]) -> int:
     paths["payments"] = drive_counting_pow(
         "payments", prover, lambda: run_payments(device, reference=workloads["payments"]))
     emit({"payments": paths["payments"]})
+    # the parallel planes: block validation at the reference's parameters,
+    # the CLI's proof pipeline, and the chain path's prove sharded over the
+    # card repeated; each builds its SRS anew (the setup's add launches)
+    kzg10._SRS_MEMO.clear()
+    paths["block"] = drive_counting_pow("block", prover, lambda: run_block(device))
+    emit({"block": paths["block"]})
+    kzg10._SRS_MEMO.clear()
+    paths["pipeline"] = drive_counting_pow("pipeline", prover, lambda: run_pipeline(device))
+    emit({"pipeline": paths["pipeline"]})
+    kzg10._SRS_MEMO.clear()
+    paths["sharded"] = drive_counting_pow("sharded", prover, lambda: run_sharded(device))
+    emit({"sharded": paths["sharded"]})
     emit({"pin": run_pin(device)})
+    emit({"elapsed": {"seconds": time.perf_counter() - script_t0}})
 
     from simpleworks_tpu_torch.fields.device import FQ, FR
 

@@ -4,7 +4,7 @@ The reference exposes its examples as ``cargo run --example NAME``
 (reference README.md:12-16, Cargo.toml:50-60); this module is the
 equivalent::
 
-    python -m simpleworks_tpu_torch.examples.run                 # all five, demo scale
+    python -m simpleworks_tpu_torch.examples.run                 # all six, demo scale
     python -m simpleworks_tpu_torch.examples.run merkle-tree     # one workload
     python -m simpleworks_tpu_torch.examples.run --full merkle-tree simple-payments
 
@@ -16,8 +16,7 @@ The SRS, index and prove of every workload run on the card; without one the
 driver raises (it does not fall back to the CPU).  Every step prints its
 seconds.
 
-Port of ``simpleworks_tpu/examples/run.py``, without its ``proof-pipeline``
-workload (the parallel planes are not ported).
+Port of ``simpleworks_tpu/examples/run.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +29,8 @@ from contextlib import contextmanager
 
 #: the leaf the merkle-tree workload checks is not in the tree
 ABSENT_LEAF = 77
+#: the manual-constraints circuits the proof-pipeline workload proves, by --full
+PIPELINE_VALUES = {True: list(range(3, 11)), False: [3, 5, 8, 13]}
 #: the simple-payments sequence's verdict at each step
 PAYMENTS_VERDICTS = {"transfer_validate": True, "transfer_apply": True, "overspend": False,
                      "forged_signature": False, "unknown_recipient": False}
@@ -253,12 +254,51 @@ def run_simple_payments(full: bool) -> None:
     simple_payments_sequence(_cli_step, prove_transactions=full)
 
 
+def proof_pipeline_sequence(step, values, device=None) -> dict:
+    """The proof-pipeline workload: one SRS(100, 25, 300) and the key of the
+    manual-constraints circuit, then the circuits ``synthesize(v, v)`` for v
+    in ``values`` proved as a stream (``prove_stream``: synthesis on one
+    thread, the prove on another, on ``device``), then every proof verified
+    against its public input.
+
+    Each step runs as ``step(key, label, fn)``, as in
+    :func:`merkle_tree_sequence`.  Raises AssertionError on a proof that does
+    not verify; returns the proofs and the pipeline's stats."""
+    from simpleworks_tpu_torch import marlin
+    from simpleworks_tpu_torch.examples.manual_constraints import synthesize
+    from simpleworks_tpu_torch.parallel.proof_pipeline import prove_stream
+
+    def keys():
+        srs = marlin.universal_setup(100, 25, 300, marlin.generate_rand(), device=device)
+        return marlin.index(srs, synthesize(3, 3))
+
+    pk, vk = step("setup_index", "universal_setup + index", keys)
+    fns = [lambda v=v: synthesize(v, v) for v in values]
+    proofs, stats = step("pipeline", f"pipelined prove x{len(values)}",
+                         lambda: prove_stream(pk, fns, with_stats=True))
+    verified = step("verify", "verify all",
+                    lambda: [marlin.verify(vk, [v], proof) for v, proof in zip(values, proofs)])
+    _expect("verify", verified, [True] * len(values))
+    return {"proofs": proofs, "stats": stats}
+
+
+def run_proof_pipeline(full: bool) -> None:
+    """A stream of independent circuits proved against one key, Python
+    synthesis pipelined against the prove on the card; prints the measured
+    overlap."""
+    stats = proof_pipeline_sequence(_cli_step, PIPELINE_VALUES[full])["stats"]
+    _write(f"  stats: wall={stats.wall_seconds:.2f}s synth-busy={stats.synth_busy_seconds:.2f}s "
+           f"prove-busy={stats.prove_busy_seconds:.2f}s overlap={stats.overlap_seconds:.2f}s "
+           f"pipeline-speedup={stats.speedup:.2f}x\n")
+
+
 WORKLOADS = {
     "test-circuit": run_test_circuit,
     "manual-constraints": run_manual_constraints,
     "merkle-tree": run_merkle_tree,
     "schnorr-signature": run_schnorr_signature,
     "simple-payments": run_simple_payments,
+    "proof-pipeline": run_proof_pipeline,
 }
 
 

@@ -10,9 +10,9 @@ Pedersen windows here are the reference's *transposed* shapes
 (ledger.rs:60-74: two-to-one 128×4, leaf 144×4 — same capacities as the
 library's 4×128 / 4×144).
 
-The serial path only: the reference's block validation
-(``State.validate_block``) needs the parallel planes, which the port does
-not have yet.
+``validate_block`` is the ledger's batched form over the parallel planes:
+one satisfiability batch for the whole block, then, with ``prove=True``, a
+pipelined Marlin proof of each transaction that passed.
 
 Port of ``simpleworks_tpu/examples/simple_payments/ledger.py`` (pure Python, copied so the port
 imports nothing of the JAX package).
@@ -116,6 +116,88 @@ class State:
         info.balance = new_amount
         self.account_merkle_tree.update(acc_id.value, info.to_bytes_le())
         return True
+
+    def validate_block(self, pp: Parameters, txs, devices=None, prove: bool = False,
+                       rng=None, max_in_flight: int = 3):
+        """Validate a block of transactions at once (the reference validates
+        one at a time, ledger.rs:176-193).  Does not mutate the state.
+
+        On the host, each transaction's stateless checks (the sender exists,
+        its Merkle path, the balance, the recipient exists) and the native
+        Schnorr verify, as ``Transaction.verify_signature`` runs them.  Then
+        one schnorr circuit is synthesised a transaction whose sender
+        exists, and the in-circuit verification of all of them runs as one
+        satisfiability batch over ``devices`` (``sharded_check_host``; the
+        cards of ``default_devices()`` by default, so without a card this
+        raises unless the caller passes CPU devices).  The batch checks
+        every row against the first circuit's matrices, as the reference
+        does: the public key, message and signature are all witnesses, so
+        every transaction's circuit has one structure, and only the
+        assignments differ.
+
+        With ``prove=True``, one SRS at ``pp.srs_scale`` (``rng`` or
+        ``test_rng()``, on ``pp.device``) and a pipelined index and prove
+        (``prove_indexed_stream``, each proof's randomness a fresh
+        ``test_rng()``) of each transaction that passed; a proof that fails
+        its verify fails the transaction.  Returns the verdicts, or with
+        ``prove=True`` ``(verdicts, proof_bytes)``, ``proof_bytes[i]`` the
+        serialized proof or None."""
+        from ...fields.bls12_377 import ConstraintF
+        from ...parallel import default_devices
+        from ...parallel.witness_dp import sharded_check_host
+        from ...r1cs.constraint_system import ConstraintSystem
+        from ..schnorr_circuit import SimpleSchnorrSignatureVerification
+        from .transaction import Transaction
+
+        if devices is None:
+            devices = default_devices()
+        verdicts: list[bool] = []
+        rows: list[int] = []  # the transaction of each batched assignment
+        circuits = []
+        for i, tx in enumerate(txs):
+            sender_info = self.id_to_account_info.get(tx.sender)
+            if sender_info is None:
+                verdicts.append(False)
+                continue
+            path = self.account_merkle_tree.generate_proof(tx.sender.value)
+            ok = path.verify(pp.leaf_crh_params, pp.two_to_one_crh_params,
+                             self.account_merkle_tree.root(), sender_info.to_bytes_le())
+            message = Transaction._message(tx.sender, tx.recipient, tx.amount)
+            ok &= schnorr.verify(pp.sig_params, sender_info.public_key, message, tx.signature)
+            ok &= tx.amount <= sender_info.balance
+            ok &= self.id_to_account_info.get(tx.recipient) is not None
+            verdicts.append(bool(ok))
+            cs = ConstraintSystem(ConstraintF)
+            SimpleSchnorrSignatureVerification(
+                parameters=pp.sig_params,
+                public_key=sender_info.public_key,
+                message=message,
+                signature=tx.signature,
+            ).generate_constraints(cs)
+            rows.append(i)
+            circuits.append(cs)
+
+        if circuits:
+            sat = sharded_check_host(devices, circuits[0], [cs.full_assignment() for cs in circuits])
+            for row, ok in zip(rows, sat):
+                verdicts[row] = verdicts[row] and ok
+        if not prove:
+            return verdicts
+
+        from ... import marlin
+        from ...marlin.serialization import serialize_proof
+        from ...parallel.proof_pipeline import prove_indexed_stream
+        from ...utils.rng import test_rng
+
+        srs = marlin.universal_setup(*pp.srs_scale, rng or test_rng(), device=pp.device)
+        to_prove = [(row, cs) for row, cs in zip(rows, circuits) if verdicts[row]]
+        proofs: list[Optional[bytes]] = [None] * len(txs)
+        results = prove_indexed_stream(srs, [cs for _, cs in to_prove],
+                                       max_in_flight=max_in_flight)
+        for (row, _cs), (proof, ok) in zip(to_prove, results):
+            verdicts[row] = verdicts[row] and ok
+            proofs[row] = serialize_proof(proof) if ok else None
+        return verdicts, proofs
 
     def apply_transaction(self, pp: Parameters, tx, rng) -> Optional[bool]:
         """reference ledger.rs:176-193."""

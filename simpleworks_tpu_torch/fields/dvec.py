@@ -12,7 +12,9 @@ divide-by-linear is a powers build, two multiplies and a log-step suffix
 scan of modular adds; divide-by-vanishing is the same scan with a stride of
 one block; evaluation is a powers build, a multiply and a halving tree of
 modular adds.  The transforms (``fft``/``ifft``) run the NTT of
-:mod:`simpleworks_tpu_torch.ops.ntt` on the vector's device.
+:mod:`simpleworks_tpu_torch.ops.ntt` on the vector's device, or the sharded
+4-step NTT over the prover's devices when :mod:`..ops.accel` routes them
+there.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from ..errors import ensure
+from ..ops import accel
 from ..ops.mont_mul import FR, mod_add, mod_sub, mont_mul, mont_pow
 from ..ops.ntt import get_ntt
 from ..device import resolve
@@ -195,15 +198,40 @@ def powers_vec(base: int, n: int, device=None) -> torch.Tensor:
 # ------------------------------------------------------------- transforms ----
 
 
+def _sharded_devices(n: int):
+    """The prover's devices when a transform of ``n`` points takes the
+    sharded 4-step NTT (``ops.accel``), else None."""
+    if not accel.use_sharded_ntt(n):
+        return None
+    from ..parallel import ntt_sharded
+
+    devices = accel.prover_devices()
+    if devices is None or not ntt_sharded.sharded_transform_supported(devices, n):
+        return None
+    return devices
+
+
 def fft(a: torch.Tensor, n: int) -> torch.Tensor:
     """coefficients [16, ≤ n] -> evaluations [16, n] over the size-n domain
-    (natural order, Montgomery in and out)."""
+    (natural order, Montgomery in and out); sharded over the prover's
+    devices when they are set and n reaches the threshold (equal values)."""
     ensure(a.shape[1] <= n, f"{a.shape[1]} coefficients exceed the domain of {n}")
+    devices = _sharded_devices(n)
+    if devices is not None:
+        from ..parallel import ntt_sharded
+
+        return ntt_sharded.sharded_transform(devices, pad_to(a, n))
     return get_ntt(n, a.device).fft_mont(pad_to(a, n))
 
 
 def ifft(a: torch.Tensor, n: int) -> torch.Tensor:
-    """evaluations [16, n] -> coefficients (1/n folded in)."""
+    """evaluations [16, n] -> coefficients (1/n folded in); sharded as
+    :func:`fft`."""
+    devices = _sharded_devices(n)
+    if devices is not None:
+        from ..parallel import ntt_sharded
+
+        return ntt_sharded.sharded_transform(devices, a, inverse=True)
     return get_ntt(n, a.device).ifft_mont(a)
 
 

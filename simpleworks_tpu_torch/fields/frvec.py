@@ -142,6 +142,14 @@ class FrVec:
         return f"FrVec(len={len(self)}, device={self.device})"
 
 
+def _offset(idx: torch.Tensor, batch: int, stride: int) -> torch.Tensor:
+    """idx + b·stride for each b < batch, concatenated in b's order."""
+    if batch == 1:
+        return idx
+    starts = torch.arange(batch, device=idx.device) * stride
+    return (starts[:, None] + idx[None, :]).reshape(-1)
+
+
 class SpmvPlan:
     """``out[rows[i]] += coeffs[i]·x[cols[i]]`` for one sparsity pattern and
     coefficient list, on the coefficients' device.
@@ -150,7 +158,8 @@ class SpmvPlan:
     each term's rank within its output's run, and the last term of every
     run.  :meth:`apply` gathers x, multiplies by the coefficients, folds
     each run with a log-step segmented scan of modular adds (⌈log2 k⌉ steps
-    for at most k terms an output), and writes each run's total to its
+    for at most k terms an output; step d adds only at the terms of rank
+    ≥ d, the others being final), and writes each run's total to its
     output, one write per distinct output."""
 
     def __init__(self, rows, cols, coeffs: FrVec, out_len: int):
@@ -178,16 +187,30 @@ class SpmvPlan:
         self.out_pos = torch.from_numpy(r_sorted[ends]).to(dev)
         d = 1
         while d <= int(rank.max()):
-            self.steps.append((d, torch.from_numpy(rank[d:] >= d).to(dev)))
+            # the terms whose run holds the term d places before them
+            self.steps.append((d, torch.from_numpy(np.flatnonzero(rank >= d)).to(dev)))
             d <<= 1
 
     def apply(self, x: FrVec) -> FrVec:
-        out = dvec.zeros(self.out_len, x.device)
+        return FrVec(self.apply_batch(x.t, 1))
+
+    def apply_batch(self, x: torch.Tensor, batch: int) -> torch.Tensor:
+        """The plan on ``batch`` vectors laid end to end along the lane axis
+        (x [16, batch·in_len] -> [16, batch·out_len]), in one pass: the
+        gather, output and run indices are offset by each vector's start, so
+        the terms of vector b stay in vector b's runs."""
+        if x.shape[1] % batch:
+            raise ValueError(f"{x.shape[1]} lanes are not {batch} vectors of one length")
+        out = dvec.zeros(batch * self.out_len, x.device)
         if self.nnz == 0:
-            return FrVec(out)
-        s = dvec.mul(x.t.index_select(1, self.gather), self.coeffs)
-        for d, same_run in self.steps:  # S_j += S_{j−d} within a run
-            folded = torch.where(same_run, dvec.add(s[:, d:], s[:, :-d]), s[:, d:])
-            s = torch.cat([s[:, :d], folded], dim=1)
-        out[:, self.out_pos] = s.index_select(1, self.last)  # distinct outputs
-        return FrVec(out)
+            return out
+        gather = _offset(self.gather, batch, x.shape[1] // batch)
+        coeffs = self.coeffs if batch == 1 else self.coeffs.repeat(1, batch)
+        s = dvec.mul(x.index_select(1, gather), coeffs)
+        for d, active in self.steps:  # S_j += S_{j−d} within a run
+            active = _offset(active, batch, self.nnz)
+            s.index_copy_(1, active, dvec.add(s.index_select(1, active),
+                                              s.index_select(1, active - d)))
+        last = _offset(self.last, batch, self.nnz)
+        out[:, _offset(self.out_pos, batch, self.out_len)] = s.index_select(1, last)  # distinct outputs
+        return out

@@ -20,6 +20,7 @@ polynomial r of degree 2, whose few coefficients stay host int lists.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -34,7 +35,7 @@ from ..errors import ensure
 from ..fields import dvec
 from ..fields.bls12_377 import FR_MODULUS, Fr
 from ..fields.device import FR, mont_scalar
-from ..ops import g1_limb
+from ..ops import accel, g1_limb
 from ..ops.msm_pippenger import msm_device_mont
 from ..ops.srs_device import fixed_base_powers_affine
 from .msm import FixedBaseMSM, msm
@@ -105,6 +106,9 @@ class Commitment:
 #: drawn before the lookup), so reusing a table is unobservable
 _SRS_MEMO: dict[tuple, UniversalSRS] = {}
 _SRS_MEMO_MAX = 2
+#: guards the memo's check and insert (the proof pipeline's threads share
+#: it); a table two threads both miss is built twice, never half-stored
+_SRS_MEMO_LOCK = threading.Lock()
 
 
 def setup(max_degree: int, rng, device=None) -> UniversalSRS:
@@ -114,13 +118,15 @@ def setup(max_degree: int, rng, device=None) -> UniversalSRS:
     tau = Fr.rand(rng).value
     gamma = Fr.rand(rng).value
     memo_key = (max_degree, tau, gamma, str(device))
-    cached = _SRS_MEMO.get(memo_key)
+    with _SRS_MEMO_LOCK:
+        cached = _SRS_MEMO.get(memo_key)
     if cached is not None:
         return cached
     srs = _setup_uncached(max_degree, tau, gamma, device)
-    if len(_SRS_MEMO) >= _SRS_MEMO_MAX:
-        _SRS_MEMO.pop(next(iter(_SRS_MEMO)))
-    _SRS_MEMO[memo_key] = srs
+    with _SRS_MEMO_LOCK:
+        if len(_SRS_MEMO) >= _SRS_MEMO_MAX:
+            _SRS_MEMO.pop(next(iter(_SRS_MEMO)))
+        _SRS_MEMO[memo_key] = srs
     return srs
 
 
@@ -218,14 +224,29 @@ def _gamma_msm(srs: UniversalSRS, coeffs: list[int]) -> G1Point:
 HOST_MSM_MAX_WIDTH = 1024
 
 
-def _srs_msm(srs: UniversalSRS, coeffs: torch.Tensor, offset: int = 0) -> G1Point:
-    """MSM of the [16, n] Montgomery coefficients against SRS powers
-    offset..offset+n."""
+def device_msm(points_xy: torch.Tensor, coeffs: torch.Tensor, offset: int = 0) -> G1Point:
+    """MSM of the [16, n] Montgomery coefficients against points
+    offset..offset+n of the [2, 24, N] affine planes, on their device: the
+    device MSM, or the host Pippenger for a CPU tensor of at most
+    ``HOST_MSM_MAX_WIDTH`` coefficients."""
     n = coeffs.shape[1]
     if coeffs.device.type == "cpu" and n <= HOST_MSM_MAX_WIDTH:
-        points = g1_limb.points_from_affine_planes(srs.powers_xy[:, :, offset : offset + n])
+        points = g1_limb.points_from_affine_planes(points_xy[:, :, offset : offset + n])
         return msm(points, dvec.to_ints(coeffs))
-    return msm_device_mont(srs.powers_xy, coeffs, offset=offset)
+    return msm_device_mont(points_xy, coeffs, offset=offset)
+
+
+def _srs_msm(srs: UniversalSRS, coeffs: torch.Tensor, offset: int = 0) -> G1Point:
+    """MSM of the [16, n] Montgomery coefficients against SRS powers
+    offset..offset+n: sharded over the prover's devices when they are set
+    and n reaches the threshold (``ops.accel``), else :func:`device_msm`."""
+    if accel.use_sharded_msm(coeffs.shape[1]):
+        devices = accel.prover_devices()
+        if devices is not None:
+            from ..parallel import msm_sharded
+
+            return msm_sharded.sharded_msm(devices, srs.powers_xy, coeffs, offset=offset)
+    return device_msm(srs.powers_xy, coeffs, offset=offset)
 
 
 

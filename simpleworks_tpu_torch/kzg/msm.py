@@ -13,15 +13,18 @@ from ..fields.bls12_377 import FR_MODULUS
 
 
 def msm(points: list[G1Point], scalars: list[int]) -> G1Point:
-    """Pippenger bucket method; window size scaled to input size."""
+    """Pippenger bucket method; window size chosen for the input size."""
     if len(points) != len(scalars):
         raise ValueError(f"{len(points)} points but {len(scalars)} scalars")
     pairs = [(p, int(s) % FR_MODULUS) for p, s in zip(points, scalars) if int(s) % FR_MODULUS]
     if not pairs:
         return G1Point.identity()
     n = len(pairs)
-    c = max(2, min(16, n.bit_length()))  # window bits
-    num_windows = (FR_MODULUS.bit_length() + c - 1) // c
+    bits = FR_MODULUS.bit_length()
+    # window bits: the fewest adds, ⌈bits/c⌉ windows of n bucket adds and
+    # 2·2^c running-sum adds each
+    c = min(range(2, 17), key=lambda c: -(-bits // c) * (n + (2 << c)))
+    num_windows = (bits + c - 1) // c
     window_sums = []
     for w in range(num_windows):
         shift = w * c

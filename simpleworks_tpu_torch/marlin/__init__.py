@@ -20,6 +20,7 @@ The reference's proving-key disk checkpoint and its device routing
 from __future__ import annotations
 
 import hashlib
+import threading
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -125,6 +126,9 @@ def generate_universal_srs(num_constraints, num_variables, num_non_zero, rng, de
 #: fingerprint
 _INDEX_MEMO: dict = {}
 _INDEX_MEMO_MAX = 4
+#: guards the memo's check and insert (the proof pipeline indexes on one
+#: thread while another proves); a key two threads both miss is built twice
+_INDEX_MEMO_LOCK = threading.Lock()
 
 
 def _matrix_fingerprint(cs, raw) -> bytes:
@@ -146,7 +150,8 @@ def index(srs: UniversalSRS, cs) -> tuple[IndexProverKey, IndexVerifierKey]:
         raw = cs.to_matrices()
     with PROVER_TIMER.region("index.host.fingerprint"):
         memo_key = (id(srs), _matrix_fingerprint(cs, raw))
-    cached = _INDEX_MEMO.get(memo_key)
+    with _INDEX_MEMO_LOCK:
+        cached = _INDEX_MEMO.get(memo_key)
     if cached is not None:
         return cached
     with PROVER_TIMER.region("index.arithmetize"):
@@ -175,9 +180,10 @@ def index(srs: UniversalSRS, cs) -> tuple[IndexProverKey, IndexVerifierKey]:
         shift_powers={b: srs.power(srs.max_degree - b) for b in sorted(set(bounds))},
     )
     result = (IndexProverKey(index=idx, srs=srs, vk=vk), vk)
-    if len(_INDEX_MEMO) >= _INDEX_MEMO_MAX:
-        _INDEX_MEMO.pop(next(iter(_INDEX_MEMO)))
-    _INDEX_MEMO[memo_key] = result
+    with _INDEX_MEMO_LOCK:
+        if len(_INDEX_MEMO) >= _INDEX_MEMO_MAX:
+            _INDEX_MEMO.pop(next(iter(_INDEX_MEMO)))
+        _INDEX_MEMO[memo_key] = result
     return result
 
 

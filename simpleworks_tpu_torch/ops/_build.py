@@ -9,7 +9,12 @@ source or header never loads a stale build.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
-where it launches its kernel, and nowhere else.
+(:func:`count_launch`) where it launches its kernel, and nowhere else.
+
+Thread-safe: the proof pipeline indexes and proves on two threads at once,
+so the first use of a library builds and loads it under one lock (a second
+thread waits for that build instead of starting its own ``nvcc`` into the
+same file), and a launch count is one increment under a lock.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -58,14 +64,23 @@ LAUNCHES = {"mont_mul": 0, "mod_add": 0, "mod_sub": 0, "mont_pow": 0, "ntt_reduc
             "g1_fused_add": 0, "g1_fused_madd": 0, "g1_bucket_combine": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
+_libs_lock = threading.Lock()
+_launch_lock = threading.Lock()
 #: seconds of wall clock the builds took in this process (0.0 while only
 #: cached builds were loaded)
 build_seconds = 0.0
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Adds one to ``LAUNCHES[name]`` (atomic across threads)."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -94,7 +109,7 @@ def build_all(stems=tuple(SIGNATURES)) -> list[Path]:
     t0 = time.perf_counter()
     procs = []
     for stem, out in todo:
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
         procs.append((stem, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -117,13 +132,18 @@ def build(stem: str = "field_kernels") -> Path:
 
 
 def library(stem: str = "field_kernels") -> ctypes.CDLL:
-    """The loaded kernel library of ``csrc/<stem>.cu`` (built on first call)."""
+    """The loaded kernel library of ``csrc/<stem>.cu`` (built on first call,
+    once however many threads ask for it)."""
     lib = _libs.get(stem)
-    if lib is None:
-        lib = ctypes.CDLL(str(build(stem)))
-        for name, args in SIGNATURES[stem].items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        _libs[stem] = lib
+    if lib is not None:
+        return lib
+    with _libs_lock:
+        lib = _libs.get(stem)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(stem)))
+            for name, args in SIGNATURES[stem].items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _libs[stem] = lib
     return lib

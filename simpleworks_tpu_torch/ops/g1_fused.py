@@ -33,7 +33,7 @@ import ctypes
 import torch
 
 from ..fields.device import FQ
-from ._build import LAUNCHES
+from ._build import LAUNCHES, count_launch
 from .mont_mul import (
     _check, _on_cuda, _raise_on, mod_add_plain, mod_sub_plain, mont_mul_plain,
 )
@@ -107,6 +107,15 @@ def double_formula(p, f):
     return (X3, Y3, Z3)
 
 
+def _with_doubling(doubles, p, general, f):
+    """``general`` with the lanes of ``doubles`` replaced by 2p.  On the CPU,
+    where reading the mask costs no device wait, the doubling is skipped
+    when no lane needs it (same values); elsewhere it always runs."""
+    if doubles.device.type == "cpu" and not bool(doubles.any()):
+        return general
+    return select_point(doubles, double_formula(p, f), general)
+
+
 def add_formula(p, q, f):
     """Complete (branchless) Jacobian addition over the field ops ``f``."""
     X1, Y1, Z1 = p
@@ -137,7 +146,7 @@ def add_formula(p, q, f):
     ident = identity(X3.shape[1], X3.device)
 
     # same x: equal points double, opposite points cancel
-    out = select_point(h_zero & r_zero, double_formula(p, f), general)
+    out = _with_doubling(h_zero & r_zero, p, general, f)
     out = select_point(h_zero & ~r_zero & ~p_ident & ~q_ident, ident, out)
     out = select_point(q_ident, p, out)
     return select_point(p_ident, q, out)
@@ -171,7 +180,7 @@ def madd_formula(p, q_affine, f):
     q_ident = f.is_zero(X2) & f.is_zero(Y2)
     B = X3.shape[1]
 
-    out = select_point(h_zero & r_zero & ~p_ident & ~q_ident, double_formula(p, f), general)
+    out = _with_doubling(h_zero & r_zero & ~p_ident & ~q_ident, p, general, f)
     out = select_point(h_zero & ~r_zero & ~p_ident & ~q_ident, identity(B, X3.device), out)
     out = select_point(p_ident, (X2, Y2, one(B, X3.device)), out)
     return select_point(q_ident, p, out)
@@ -257,7 +266,7 @@ def _launch_add(planes) -> tuple:
             ctypes.addressof(views), out.data_ptr(), B, FQ.p_words_ptr, FQ.n0_32,
             FQ.one_words_ptr, stream)
     _raise_on(rc, "g1_fused_add")
-    LAUNCHES["g1_fused_add"] += 1
+    count_launch("g1_fused_add")
     return out[0], out[1], out[2]
 
 
@@ -304,7 +313,7 @@ def _launch_accumulate(acc3, rows, idx, valid) -> tuple:
             valid.data_ptr(), depth, lanes, out.data_ptr(), FQ.p_words_ptr, FQ.n0_32,
             FQ.one_words_ptr, stream)
     _raise_on(rc, "g1_fused_madd")
-    LAUNCHES["g1_fused_madd"] += 1
+    count_launch("g1_fused_madd")
     return out[0], out[1], out[2]
 
 
@@ -340,7 +349,7 @@ def _launch_combine(acc3, w_count: int, segs: int, b: int) -> tuple:
             ctypes.addressof(views), bufs[0].data_ptr(), bufs[1].data_ptr(), w_count, segs, b,
             out.data_ptr(), FQ.p_words_ptr, FQ.n0_32, FQ.one_words_ptr, stream)
     _raise_on(rc, "g1_bucket_combine")
-    LAUNCHES["g1_bucket_combine"] += 1
+    count_launch("g1_bucket_combine")
     return out[0], out[1], out[2]
 
 

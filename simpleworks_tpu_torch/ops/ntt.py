@@ -30,6 +30,7 @@ value for value.
 from __future__ import annotations
 
 import ctypes
+import threading
 from contextlib import contextmanager
 from functools import lru_cache
 
@@ -38,7 +39,7 @@ import torch
 from ..device import resolve
 from ..fields.bls12_377 import FR_MODULUS, fr_root_of_unity
 from ..fields.device import FR, LIMB_BITS, LIMB_MASK, split_words, to_mont
-from ._build import LAUNCHES
+from ._build import LAUNCHES, count_launch
 from .mont_mul import _normalize, _on_cuda, _raise_on, _reduce_once, mont_mul
 
 P = FR_MODULUS
@@ -103,7 +104,7 @@ def ntt_reduce(c: torch.Tensor) -> torch.Tensor:
         rc = library("ntt_kernels").swt_ntt_reduce(
             c.data_ptr(), c.stride(0), out.data_ptr(), B, ctypes.addressof(_P16), _N0_16, stream)
     _raise_on(rc, "ntt_reduce")
-    LAUNCHES["ntt_reduce"] += 1
+    count_launch("ntt_reduce")
     return out
 
 
@@ -118,17 +119,34 @@ def _byte_planes(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], dim=1).reshape((L8,) + tuple(x.shape[1:]))
 
 
+_fp32_lock = threading.Lock()
+_fp32_inside = 0     # threads inside _exact_fp32
+_fp32_saved = None   # the process's setting, restored when the last one leaves
+
+
 @contextmanager
 def _exact_fp32():
     """float32 matrix products in full float32 on the card (never TF32,
-    whatever the process set), for the duration of the block only."""
+    whatever the process set), for the duration of the block only.
+
+    The setting is process-wide, so the blocks of all threads share it: the
+    first thread in sets it, the last one out restores the setting it found
+    (a thread leaving early must not put TF32 back under another's limb
+    matmuls)."""
+    global _fp32_inside, _fp32_saved
     matmul = torch.backends.cuda.matmul
-    prev = matmul.fp32_precision
-    matmul.fp32_precision = "ieee"
+    with _fp32_lock:
+        if _fp32_inside == 0:
+            _fp32_saved = matmul.fp32_precision
+            matmul.fp32_precision = "ieee"
+        _fp32_inside += 1
     try:
         yield
     finally:
-        matmul.fp32_precision = prev
+        with _fp32_lock:
+            _fp32_inside -= 1
+            if _fp32_inside == 0:
+                matmul.fp32_precision = _fp32_saved
 
 
 def _limb_matmul(lhs8: torch.Tensor, rhs8: torch.Tensor) -> torch.Tensor:
@@ -246,9 +264,11 @@ class LimbMatmulNTT:
             raise ValueError("a transform of at most 256 points has no split level")
         return self._phase_a_planes(x[:, None, :], self._fwd)
 
-    def _check(self, x: torch.Tensor) -> None:
-        if x.dim() != 2 or x.shape != (L, self.n) or x.dtype != torch.int32:
-            raise ValueError(f"expected a [16, {self.n}] int32 limb tensor, got "
+    def _check(self, x: torch.Tensor, batched: bool = False) -> None:
+        dims = 3 if batched else 2
+        if x.dim() != dims or x.shape[0] != L or x.shape[-1] != self.n or x.dtype != torch.int32:
+            shape = f"[16, B, {self.n}]" if batched else f"[16, {self.n}]"
+            raise ValueError(f"expected a {shape} int32 limb tensor, got "
                              f"{tuple(x.shape)} {x.dtype}")
         if x.device != self.device:
             raise ValueError(f"tensor on {x.device}, transform tables on {self.device}")
@@ -262,6 +282,17 @@ class LimbMatmulNTT:
         """evaluations -> coefficients (1/n folded into the tables)."""
         self._check(x)
         return self._run(x[:, None, :], self._inv)[:, 0, :].contiguous()
+
+    def fft_mont_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """B transforms at once, [16, B, n] -> [16, B, n]: one pass over the
+        shared tables, each level's matmuls B times as wide."""
+        self._check(x, batched=True)
+        return self._run(x, self._fwd).contiguous()
+
+    def ifft_mont_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """B inverse transforms at once (1/n folded in), [16, B, n]."""
+        self._check(x, batched=True)
+        return self._run(x, self._inv).contiguous()
 
 
 @lru_cache(maxsize=16)

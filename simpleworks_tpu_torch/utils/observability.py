@@ -9,6 +9,7 @@ honest per-region device seconds (it adds two device waits a region).
 
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -28,6 +29,8 @@ class KernelTimer:
         if self.synchronize and torch.cuda.is_available():
             torch.cuda.synchronize()
 
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
+
     @contextmanager
     def region(self, label: str):
         self._sync()
@@ -37,7 +40,8 @@ class KernelTimer:
         finally:
             self._sync()
             dt = time.perf_counter() - start
-            self.totals[label] = self.totals.get(label, 0.0) + dt
+            with self._lock:  # the proof pipeline's threads share one timer
+                self.totals[label] = self.totals.get(label, 0.0) + dt
 
     def reset(self) -> None:
         self.totals.clear()
