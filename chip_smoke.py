@@ -25,6 +25,11 @@ printed as one JSON line, any failure raising:
    first-level planes of a seed-made 2^20-point transform (exact), the
    round trip ifft(fft(x)) == x at 2^20, and fft against the pure-Python
    ntt_host at 2^12 (which shows the limb matmul exact on the card);
+   then DeviceField (fields/device.py) on [L, 2^16] Fr and Fq lanes, each op
+   against the plain version of its kernel and host integers, and
+   curves/g1_device.py: the fixed-base ladder for 256 scalars at 253 bits
+   against host scalar_mul, tree_reduce of 2^12 points against the host
+   sum;
 6. the KZG path: KZG10 setup at the SRS degree of the bench's Marlin prove,
    four commits of the widths that prove commits, a batch opening and the
    batch check (True, then False with one evaluation changed), and a
@@ -52,6 +57,16 @@ printed as one JSON line, any failure raising:
    show that it took that route (no accumulate-kernel launch, the pow in
    the affine rows): equal bytes, and its seconds and regions beside the
    madd prove's;
+    then the checkpoint path, on the Marlin path's SRS and proving key: both
+    saved to the disk checkpoints in a fresh temporary directory (seconds
+    and file sizes), then this script started again with
+    --checkpoint-child on the same card and directories: its universal_setup
+    and index must load both (no SRS build, no index commit, by count), and
+    its prove of the bench's circuit on the bench's draws must give the
+    fixture's vk and proof; the launches of that process count on the path;
+    then the proving-key serde of test_circuit(3, 3) at SRS(32, 32, 64):
+    serialize, deserialize onto the card, the same bytes again and the same
+    proof;
 10. the merkle path: the merkle-tree workload at the reference's parameters
     (SimpleMerkleTree of the example's 8 leaves, Pedersen windows 4x144 /
     4x128, SRS(100k, 25k, 300k): 15,198 constraints, n = 2^14, m = 2^15):
@@ -100,9 +115,11 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -159,10 +176,24 @@ WORKLOAD_FIXTURE = REFERENCE_FIXTURE.parent / "merkle_tree_reference.json"
 #: the payments path: the Marlin pipelines each step of the sequence runs.
 #: The CLI's sequence runs one at each of the four validates whose native
 #: signature check passes; the path keeps two of them, a passing and a
-#: failing verdict, to hold the script inside its time (the block path
-#: proves the same circuit six times)
+#: failing verdict: with all four (40.0 s) the script took 283 s on the
+#: H100, over its 225 s (the block path proves the same circuit six times)
 PAYMENTS_PIPELINES = {"sample": 0, "register": 0, "transfer_validate": 1, "transfer_apply": 0,
                       "overspend": 0, "forged_signature": 0, "unknown_recipient": 1}
+#: the checkpoint path: the flag that makes this script the path's second
+#: process, and how long the first waits for it
+CHECKPOINT_CHILD_FLAG = "--checkpoint-child"
+CHECKPOINT_CHILD_TIMEOUT_S = 300
+#: the serde's circuit, test_circuit(3, 3), at the smallest SRS that indexes
+#: it (n = 32, m = 64: degree 189; decompressing its 190 powers takes ~0.5 s)
+SERDE_SRS_SIZES = (32, 32, 64)
+#: DeviceField's lanes (each op also against host ints on the first ones),
+#: the fixed-base ladder's scalars and bits, and tree_reduce's points
+DEVICE_FIELD_LANES = 1 << 16
+DEVICE_FIELD_HOST_LANES = 1024
+LADDER_SCALARS = 256
+LADDER_BITS = 253
+TREE_POINTS = 1 << 12
 #: the block path: a 32-account ledger at the reference's parameters, five
 #: accounts registered with BLOCK_BALANCE each, and a block of four valid
 #: transfers from four senders, then a signature made with another account's
@@ -1440,6 +1471,243 @@ def run_slice(device, max_degree: int = MAX_DEGREE, polys=POLYS,
             "host_msm_equal": True}
 
 
+# ------------------------------------------ checkpoint path and new API --
+
+
+def check_device_field(device, lanes: int = DEVICE_FIELD_LANES,
+                       host_lanes: int = DEVICE_FIELD_HOST_LANES) -> dict:
+    """fields.device.DeviceField on [L, lanes] seed-made Fr and Fq vectors
+    (0, 1 and p-1 among them): each op against the plain version of its
+    kernel on the same card tensors (exact), and against host integers on
+    the first ``host_lanes`` lanes."""
+    import numpy as np
+    import torch
+
+    from simpleworks_tpu_torch.fields.bls12_377 import Fq, Fr
+    from simpleworks_tpu_torch.fields.device import DeviceField, from_mont
+    from simpleworks_tpu_torch.ops import mont_mul as mm
+
+    out = {}
+    for params, seed in ((Fr.PARAMS, 41), (Fq.PARAMS, 42)):
+        df = DeviceField(params)
+        f, p = df.field, df.p_int
+        a, b = field_inputs(f, lanes, seed, device), field_inputs(f, lanes, seed + 10, device)
+        b = b.flip(1).contiguous()  # the edge values meet each other
+        col = b[:, 7:8]
+        zero = torch.zeros_like(a)
+        cond = torch.from_numpy(np.arange(lanes) % 3 == 0).to(device)
+        e = p - 2
+        cases = {
+            "add": (df.add(a, b), mm.mod_add_plain(a, b, f)),
+            "sub": (df.sub(a, b), mm.mod_sub_plain(a, b, f)),
+            "neg": (df.neg(a), mm.mod_sub_plain(zero, a, f)),
+            "mul": (df.mul(a, b), mm.mont_mul_plain(a, b, f)),
+            "square": (df.square(a), mm.mont_mul_plain(a, a, f)),
+            "mul_scalar_mont": (df.mul_scalar_mont(a, col), mm.mont_mul_plain(a, col.expand_as(a), f)),
+            "pow_host_exponent": (df.pow_host_exponent(a, e), mm.mont_pow_plain(a, e, f)),
+            "select": (df.select(cond, a, b), torch.where(cond[None, :], a, b)),
+        }
+        x, y = from_mont(a[:, :host_lanes], f), from_mont(b[:, :host_lanes], f)
+        c = from_mont(col, f)[0]
+        host = {"add": [(u + v) % p for u, v in zip(x, y)], "sub": [(u - v) % p for u, v in zip(x, y)],
+                "neg": [-u % p for u in x], "mul": [u * v % p for u, v in zip(x, y)],
+                "square": [u * u % p for u in x], "mul_scalar_mont": [u * c % p for u in x],
+                "pow_host_exponent": [pow(u, e, p) for u in x],
+                "select": [u if k % 3 == 0 else v for k, (u, v) in enumerate(zip(x, y))]}
+        rows = {}
+        for name, (got, plain) in cases.items():
+            equal = bool(torch.equal(got, plain)) and from_mont(got[:, :host_lanes], f) == host[name]
+            if not equal:
+                raise AssertionError(f"DeviceField.{name} ({params.name}) differs from its plain "
+                                     f"version or the host")
+            rows[name] = True
+        a_eq = a.clone()
+        a_eq[:, 5] = b[:, 5]
+        flags = {"is_zero": (df.is_zero(a), [u == 0 for u in from_mont(a, f)]),
+                 "eq": (df.eq(a, a_eq), [k != 5 or bool(torch.equal(a[:, 5], b[:, 5]))
+                                         for k in range(lanes)])}
+        for name, (got, want) in flags.items():
+            if got.tolist() != want:
+                raise AssertionError(f"DeviceField.{name} ({params.name}) is wrong")
+            rows[name] = True
+        out[params.name] = {"shape": list(a.shape), "host_lanes": host_lanes, "equal": rows}
+    return out
+
+
+def check_g1_device(device, scalars: int = LADDER_SCALARS, bits: int = LADDER_BITS,
+                    tree_points: int = TREE_POINTS) -> dict:
+    """curves.g1_device on the card: the fixed-base ladder for ``scalars``
+    seed-made scalars at ``bits`` bits (0 and 1 among them) against host
+    scalar_mul, and tree_reduce of ``tree_points`` seed-made points (the
+    identities, doublings and cancellations of g1_inputs mixed in) against
+    the host sum, exactly."""
+    import numpy as np
+
+    from simpleworks_tpu_torch.curves import g1_device
+    from simpleworks_tpu_torch.curves.bls12_377 import G1Point
+    from simpleworks_tpu_torch.fields.bls12_377 import FR_MODULUS as P
+
+    rng = np.random.default_rng(43)
+    base = G1Point.generator().scalar_mul(int.from_bytes(rng.bytes(32), "little") % P)
+    ks = [0, 1] + [int.from_bytes(rng.bytes(32), "little") % P for _ in range(scalars - 2)]
+    t0 = time.perf_counter()
+    ladder = g1_device.points_from_device(
+        g1_device.scalar_mul_fixed_base_batch(base, ks, num_bits=bits, device=device))
+    ladder_s = time.perf_counter() - t0
+    if ladder != [base.scalar_mul(k % (1 << bits)) for k in ks]:
+        raise AssertionError("g1_device.scalar_mul_fixed_base_batch differs from host scalar_mul")
+    ins = g1_inputs(tree_points, 44, device)
+    t0 = time.perf_counter()
+    (total,) = g1_device.points_from_device(g1_device.tree_reduce(ins["p3"]))
+    tree_s = time.perf_counter() - t0
+    expected = G1Point.identity()
+    for pt in ins["p"]:
+        expected = expected.add(pt)
+    if total != expected:
+        raise AssertionError("g1_device.tree_reduce differs from the host sum")
+    return {"ladder": {"scalars": scalars, "bits": bits, "seconds": ladder_s, "equal": True},
+            "tree_reduce": {"points": tree_points, "seconds": tree_s, "equal": True}}
+
+
+@contextlib.contextmanager
+def checkpoint_env(root: str):
+    """Both disk checkpoints on, in ``root``'s srs/ and pk/, for the enclosed
+    block (yields that environment); the environment as it was afterwards."""
+    keys = ("SWTPU_SRS_DISK_CACHE", "SWTPU_PK_DISK_CACHE", "SWTPU_SRS_CACHE_DIR",
+            "SWTPU_PK_CACHE_DIR")
+    saved = {k: os.environ.get(k) for k in keys}
+    for k in keys[:2]:
+        os.environ.pop(k, None)
+    os.environ.update(SWTPU_SRS_CACHE_DIR=str(Path(root) / "srs"),
+                      SWTPU_PK_CACHE_DIR=str(Path(root) / "pk"))
+    try:
+        yield dict(os.environ)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_checkpoint(device, kept: dict, root: str, timeout_s: float = CHECKPOINT_CHILD_TIMEOUT_S
+                   ) -> dict:
+    """The checkpoint path, on the Marlin path's SRS and proving key
+    (``kept``; no setup or index here): both saved to the disk checkpoints
+    under ``root``; then a fresh process (this script with
+    CHECKPOINT_CHILD_FLAG, on the same card and directories) loads them
+    through universal_setup and index, with no setup and no index work,
+    and proves the bench's circuit, vk and proof held to the fixture; then
+    the proving-key serde round trip of test_circuit(3, 3) on the card."""
+    import os
+
+    from simpleworks_tpu_torch import marlin
+    from simpleworks_tpu_torch.fields.bls12_377 import Fr
+    from simpleworks_tpu_torch.kzg import kzg10
+
+    pk, cs = kept["pk"], kept["cs"]
+    srs = pk.srs
+    steps: dict[str, float] = {}
+    with checkpoint_env(root) as env:
+        rng = marlin.generate_rand()
+        key = (srs.max_degree, Fr.rand(rng).value, Fr.rand(rng).value)  # setup's memo key
+        timed_step(device, steps, "save_srs_s", lambda: kzg10._save_srs_disk(key, srs))
+        matrix_fp = marlin._matrix_fingerprint(cs, cs.to_matrices())
+        pk_path = marlin._pk_disk_path(srs, matrix_fp)
+        timed_step(device, steps, "save_pk_s", lambda: marlin._save_pk_disk(pk_path, pk))
+    sizes = {}
+    for sub, prefix in (("srs", "torch_srs_"), ("pk", "torch_pk_")):
+        found = sorted((Path(root) / sub).glob(f"{prefix}*.npz"))
+        if len(found) != 1:
+            raise AssertionError(f"the {sub} checkpoint was not written: {found}")
+        sizes[f"{sub}_bytes"] = found[0].stat().st_size
+    emit({"checkpoint_saved": {**steps, **sizes}})
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), CHECKPOINT_CHILD_FLAG],
+                          capture_output=True, text=True, env=env, timeout=timeout_s,
+                          cwd=str(Path(__file__).resolve().parent))
+    child_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    last = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+    if proc.returncode != 0 or "checkpoint_child" not in last:
+        sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+        raise AssertionError(f"the checkpoint child exited {proc.returncode} without a result")
+    child = last["checkpoint_child"]
+    serde = run_serde(device)
+    return {**steps, **sizes, "child_wall_s": child_s, "child": child,
+            "child_launches": child["launches"], "serde": serde}
+
+
+def checkpoint_child(device, reference: dict) -> dict:
+    """The checkpoint path's second process: universal_setup and index of
+    the bench's sizes and circuit must load from the disk checkpoints (no
+    call of the SRS build, no index commit), then the circuit is
+    synthesised and proved on the bench's draws, and the vk and proof held
+    to the fixture."""
+    from simpleworks_tpu_torch import marlin
+    from simpleworks_tpu_torch.kzg import kzg10
+    from simpleworks_tpu_torch.marlin.serialization import serialize_proof, serialize_verifying_key
+    from simpleworks_tpu_torch.ops import _build
+
+    counts = {"setup": 0, "commit": 0}
+    build, commit = kzg10._setup_uncached, kzg10.commit
+
+    def counted(key, fn):
+        def wrapper(*args, **kwargs):
+            counts[key] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    kzg10._setup_uncached, kzg10.commit = counted("setup", build), counted("commit", commit)
+    steps: dict[str, float] = {}
+    srs = timed_step(device, steps, "load_srs_s", lambda: marlin.universal_setup(
+        *SRS_SIZES, marlin.generate_rand(), device=device))
+    emit({"load_srs_s": steps["load_srs_s"]})
+    cs = timed_step(device, steps, "synthesis_s", schnorr_circuit)
+    pk, vk = timed_step(device, steps, "load_pk_s", lambda: marlin.index(srs, cs))
+    emit({"load_pk_s": steps["load_pk_s"]})
+    work = dict(counts)
+    if work != {"setup": 0, "commit": 0}:
+        raise AssertionError(f"the second process set up or indexed instead of loading: {work}")
+    _build.reset_launches()
+    proof = timed_step(device, steps, "prove_cold_s", lambda: marlin.prove(pk, cs))
+    launches = dict(_build.LAUNCHES)
+    emit({"prove_cold_s": steps["prove_cold_s"]})
+    emit({"launches": launches})
+    same = check_reference(reference, serialize_verifying_key(vk), serialize_proof(proof))
+    if not marlin.verify(vk, [], proof):
+        raise AssertionError("the loaded key's proof does not verify")
+    return {"steps": steps, "work": work, "launches": launches, "reference": same,
+            "srs_max_degree": srs.max_degree}
+
+
+def run_serde(device) -> dict:
+    """serialize_proving_key -> deserialize_proving_key(device) -> prove, for
+    test_circuit(3, 3) at SERDE_SRS_SIZES on the card: the bytes read back
+    serialize to the same bytes, and the read-back key's proof equals the
+    original key's."""
+    from simpleworks_tpu_torch import marlin
+    from simpleworks_tpu_torch.examples import test_circuit
+    from simpleworks_tpu_torch.marlin import serialization as serde
+
+    steps: dict[str, float] = {}
+    cs = test_circuit.synthesize(3, 3)
+    srs = marlin.universal_setup(*SERDE_SRS_SIZES, marlin.generate_rand(), device=device)
+    pk, vk = marlin.index(srs, cs)
+    proof = serde.serialize_proof(marlin.prove(pk, cs))
+    blob = timed_step(device, steps, "serialize_s", lambda: serde.serialize_proving_key(pk))
+    pk2 = timed_step(device, steps, "deserialize_s",
+                     lambda: serde.deserialize_proving_key(blob, device=device))
+    if pk2.srs.device != device or serde.serialize_proving_key(pk2) != blob:
+        raise AssertionError("the proving key read back does not serialize to its bytes")
+    proof2 = marlin.prove(pk2, cs)
+    if serde.serialize_proof(proof2) != proof or not marlin.verify(vk, [], proof2):
+        raise AssertionError("the proving key read back proves other bytes")
+    return {"sizes": list(SERDE_SRS_SIZES), "powers": srs.num_powers, "bytes": len(blob),
+            "steps": steps, "equal": True}
+
+
 def smi(query: str) -> str:
     out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -1449,7 +1717,7 @@ def smi(query: str) -> str:
 def main(argv: list[str]) -> int:
     import torch
 
-    if argv not in ([], ["--profile"]):
+    if argv not in ([], ["--profile"], [CHECKPOINT_CHILD_FLAG]):
         print("usage: chip_smoke.py [--profile]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1465,6 +1733,13 @@ def main(argv: list[str]) -> int:
     device = torch.device("cuda", 0)
     reference = json.loads(REFERENCE_FIXTURE.read_text())
     workloads = json.loads(WORKLOAD_FIXTURE.read_text())
+    if argv == [CHECKPOINT_CHILD_FLAG]:
+        _build.build_all()
+        emit({"checkpoint_child": checkpoint_child(device, reference)})
+        return 0
+    # the disk checkpoints stay off on every path but the checkpoint path's,
+    # so that no path times a load as its setup or index
+    os.environ.update(SWTPU_SRS_DISK_CACHE="0", SWTPU_PK_DISK_CACHE="0")
 
     script_t0 = time.perf_counter()
     print(smi("name,power.limit"), flush=True)
@@ -1485,6 +1760,8 @@ def main(argv: list[str]) -> int:
     ntt_checks = check_ntt(device)
     emit({"ntt_checks": ntt_checks})
     checks["ntt_reduce"] = [ntt_checks["reduce"]]
+    emit({"device_field_checks": check_device_field(device)})
+    emit({"g1_device_checks": check_g1_device(device)})
 
     def drive(label, path, fn):
         """Runs one path with the launch counts set to 0 just before it and
@@ -1497,6 +1774,8 @@ def main(argv: list[str]) -> int:
         torch.cuda.synchronize(device)
         result["seconds"] = time.perf_counter() - t0
         result["launches"] = dict(_build.LAUNCHES)
+        for k, v in result.get("child_launches", {}).items():  # a second process's
+            result["launches"][k] += v
         result["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
         result["start_memory_bytes"] = start_bytes
         idle = [k for k in path if result["launches"][k] <= 0]
@@ -1563,6 +1842,13 @@ def main(argv: list[str]) -> int:
     emit({"marlin_affine": drive_affine_prove(
         lambda: run_affine_prove(device, kept["pk"], kept["cs"], kept["proof"]),
         paths["marlin"])})
+    # the checkpoint path: the Marlin path's SRS and key saved, then loaded
+    # by a second process; the small proving-key serde
+    with tempfile.TemporaryDirectory(prefix="swtpu_checkpoints_") as root:
+        paths["checkpoint"] = drive("checkpoint", prover,
+                                    lambda: run_checkpoint(device, kept, root))
+    del kept
+    emit({"checkpoint": paths["checkpoint"]})
     # the two workloads at the reference's parameters; the merkle tree's SRS
     # draws the Marlin path's tau and gamma, so it is built anew, not read
     # from the memo

@@ -7,6 +7,11 @@ package's ``uint32`` arrays, value for value.
 
 The packers go through ``int.to_bytes`` / ``np.frombuffer`` rather than a
 per-limb Python loop, so a table of millions of elements packs in seconds.
+
+:class:`DeviceField` is the reference's batched field surface over this
+layout: a thin class whose ops are the field kernels of
+:mod:`simpleworks_tpu_torch.ops.mont_mul` (their plain versions on CPU
+tensors).  The reference's arrays are ``[..., L]``; here they are ``[L, B]``.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from .host import FieldParams
 __all__ = [
     "LIMB_BITS", "LIMB_MASK", "LimbField", "FR", "FQ", "split_words", "ints_to_limbs",
     "limbs_to_ints", "to_mont", "from_mont", "to_limbs_tensor", "mont_scalar", "from_reference_limbs", "to_reference_limbs",
+    "int_to_limbs", "limbs_to_int", "DeviceField",
 ]
 
 LIMB_BITS = 16
@@ -121,3 +127,105 @@ def from_reference_limbs(arr: np.ndarray, device=None) -> torch.Tensor:
 def to_reference_limbs(t: torch.Tensor) -> np.ndarray:
     """The port's [L, B] int32 tensor -> the JAX package's uint32 layout."""
     return t.cpu().numpy().astype(np.uint32)
+
+
+def int_to_limbs(value: int, n_limbs: int) -> np.ndarray:
+    """One non-negative int < 2^(16 n_limbs) -> its [n_limbs] uint32 16-bit limbs."""
+    return np.array(split_words(int(value), n_limbs, LIMB_BITS), dtype=np.uint32)
+
+
+def limbs_to_int(limbs) -> int:
+    """[L] 16-bit limbs (little-endian) -> the int they spell."""
+    value = 0
+    for limb in reversed(np.asarray(limbs, dtype=np.uint64).reshape(-1).tolist()):
+        value = (value << LIMB_BITS) | int(limb)
+    return value
+
+
+class DeviceField:
+    """Constants and batched ops of one prime field on ``[L, B]`` Montgomery
+    limb tensors (R = 2^(16 L)).  ``add`` is the mod-add kernel, ``sub`` and
+    ``neg`` the mod-sub kernel, ``mul``, ``square`` and ``mul_scalar_mont``
+    the Montgomery-multiply kernel and ``pow_host_exponent`` the pow kernel;
+    a ``[L, 1]`` operand broadcasts over the lanes."""
+
+    def __init__(self, params: FieldParams):
+        from ..ops import mont_mul
+
+        self._k = mont_mul
+        self.params = params
+        self.field = next((f for f in (FR, FQ) if f.params == params), None) or LimbField(params)
+        L = self.n_limbs = self.field.n_limbs
+        p = self.p_int = params.modulus
+        self.r_int = params.montgomery_r
+        self.r2_int = self.r_int**2 % p
+        self.p_limbs = int_to_limbs(p, L)
+        self.r_limbs = int_to_limbs(self.r_int, L)
+        self.r2_limbs = int_to_limbs(self.r2_int, L)
+        self.n0 = self.field.n0_16  # −p⁻¹ mod 2^16, the REDC digit factor
+        self.zero = np.zeros((L,), dtype=np.uint32)
+        self.one_mont = int_to_limbs(self.r_int, L)
+
+    # -- host <-> device ----------------------------------------------------
+
+    def to_mont(self, values, device=None) -> torch.Tensor:
+        """Standard-form ints -> [L, N] Montgomery tensor on ``device`` (the
+        card by default)."""
+        vals = values if isinstance(values, (list, tuple)) else np.atleast_1d(values).tolist()
+        return to_mont(vals, self.field, device)
+
+    def from_mont(self, t: torch.Tensor) -> list[int]:
+        """[L, N] Montgomery tensor -> standard-form ints (fetches)."""
+        return from_mont(t, self.field)
+
+    # -- limb plumbing -------------------------------------------------------
+
+    def normalize(self, t: torch.Tensor) -> torch.Tensor:
+        """Carry-propagate [L, B] limb rows so every limb is < 2^16; the
+        carry out of the top limb is dropped."""
+        limbs, _carry = self._k._normalize(t.to(torch.int64))
+        return limbs.to(torch.int32)
+
+    # -- modular ops (Montgomery form in and out) ------------------------------
+
+    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self._k.mod_add(*torch.broadcast_tensors(a, b), self.field)
+
+    def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self._k.mod_sub(*torch.broadcast_tensors(a, b), self.field)
+
+    def neg(self, a: torch.Tensor) -> torch.Tensor:
+        """p − a, and 0 for 0."""
+        return self.sub(torch.zeros_like(a[:, :1]).expand_as(a), a)
+
+    def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Montgomery product a·b·R⁻¹ mod p."""
+        return self._k.mont_mul(*torch.broadcast_tensors(a, b), self.field)
+
+    def square(self, a: torch.Tensor) -> torch.Tensor:
+        return self.mul(a, a)
+
+    def mul_scalar_mont(self, a: torch.Tensor, scalar_mont: torch.Tensor) -> torch.Tensor:
+        """Every lane times one [L, 1] Montgomery scalar."""
+        return self.mul(a, scalar_mont.reshape(self.n_limbs, 1).expand_as(a))
+
+    def pow_host_exponent(self, a: torch.Tensor, e: int) -> torch.Tensor:
+        """a^e for a fixed host exponent e ≥ 0.  Beyond the kernel's 384
+        bits, e is taken mod p − 1 (a nonzero multiple as p − 1, so 0 stays
+        0), which gives the same power of every element."""
+        e = int(e)
+        if e < 0:
+            raise ValueError("the exponent must be non-negative")
+        if e.bit_length() > 384:
+            e = (e - 1) % (self.p_int - 1) + 1
+        return self._k.mont_pow(a, e, self.field)
+
+    def select(self, cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Lanewise cond ? a : b; ``cond`` a [B] bool tensor."""
+        return torch.where(cond[None, :], a, b)
+
+    def is_zero(self, a: torch.Tensor) -> torch.Tensor:
+        return (a == 0).all(dim=0)
+
+    def eq(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return (a == b).all(dim=0)

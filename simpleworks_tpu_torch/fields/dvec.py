@@ -248,6 +248,27 @@ def to_ints(a: torch.Tensor) -> list[int]:
     return from_mont(a, FR)
 
 
+def from_frvec(vec) -> torch.Tensor:
+    """FrVec -> its [16, N] Montgomery tensor (the port's FrVec already
+    lives on a device: no copy)."""
+    return vec.t
+
+
+def to_frvec(a: torch.Tensor):
+    """[16, N] Montgomery tensor -> FrVec on the tensor's device."""
+    from .frvec import FrVec
+
+    return FrVec(a)
+
+
+def mont_scalar_np(value: int) -> np.ndarray:
+    """[16, 1] uint32 Montgomery limb column of one scalar (host numpy, the
+    reference's layout; ``torch.from_numpy(...).to(torch.int32)`` puts it on
+    a device)."""
+    m = int(value) % P * FR.r % P
+    return np.array([[(m >> (16 * t)) & 0xFFFF] for t in range(L)], dtype=np.uint32)
+
+
 def scalar_to_int(col: torch.Tensor) -> int:
     """[16, 1] Montgomery column -> standard-form int (fetches)."""
     return limbs_to_ints(col)[0] * pow(FR.r, -1, P) % P

@@ -46,6 +46,30 @@ class FrVec:
         return FrVec(dvec.from_ints(values, device))
 
     @staticmethod
+    def from_std_array(std, device=None) -> "FrVec":
+        """[N, 4] little-endian u64 standard-form values (each < p; the
+        32-byte serde layout) -> FrVec on ``device``: one view as 16-bit
+        limbs, one upload and one multiply by R² mod p into Montgomery form."""
+        u16 = np.ascontiguousarray(std, dtype="<u8").view("<u2").reshape(-1, dvec.L)
+        limbs = torch.from_numpy(np.ascontiguousarray(u16.T).astype(np.int32)).to(resolve(device))
+        return FrVec(dvec.scale(limbs, mont_scalar(FR.r, FR, limbs.device)))
+
+    def to_std_array(self) -> np.ndarray:
+        """[N, 4] little-endian u64 standard-form values: out of Montgomery
+        form on the device, then one copy to the host."""
+        std = dvec.to_standard(self.t).cpu().numpy().astype("<u2")
+        return np.ascontiguousarray(std.T).view("<u8").reshape(-1, 4)
+
+    @staticmethod
+    def from_device_limbs(limbs: torch.Tensor) -> "FrVec":
+        """The [16, N] Montgomery limb tensor (the DeviceField layout) -> FrVec."""
+        return FrVec(limbs)
+
+    def to_device_limbs(self) -> torch.Tensor:
+        """The [16, N] Montgomery limb tensor (the DeviceField layout)."""
+        return self.t
+
+    @staticmethod
     def zeros(n: int, device=None) -> "FrVec":
         return FrVec(dvec.zeros(n, device))
 
@@ -75,6 +99,9 @@ class FrVec:
     def __len__(self) -> int:
         return self.t.shape[1]
 
+    def copy(self) -> "FrVec":
+        return FrVec(self.t.clone())
+
     def __getitem__(self, i):
         if isinstance(i, slice):
             return FrVec(self.t[:, i])
@@ -98,6 +125,11 @@ class FrVec:
     def __mul__(self, other: "FrVec") -> "FrVec":
         self._same(other)
         return FrVec(dvec.mul(self.t, other.t))
+
+    def mul_add(self, other: "FrVec", addend: "FrVec") -> "FrVec":
+        """self·other + addend."""
+        self._same(addend)
+        return self * other + addend
 
     def scale(self, s: int) -> "FrVec":
         return FrVec(dvec.scale(self.t, self.mont_scalar(s, self.device)))
@@ -130,6 +162,21 @@ class FrVec:
 
     def is_zero(self) -> bool:
         return not bool((self.t != 0).any())
+
+    # -- polynomial helpers -----------------------------------------------------
+
+    def horner(self, z: int) -> int:
+        """Σ self[i]·z^i at a standard-form point (one small fetch)."""
+        if len(self) == 0:
+            return 0
+        return dvec.scalar_to_int(dvec.evaluate(self.t, z % P))
+
+    def div_linear(self, z: int) -> tuple["FrVec", int]:
+        """(quotient, remainder) of the division by (X − z)."""
+        if len(self) == 0:
+            return FrVec.zeros(0, self.device), 0
+        quot, rem = dvec.divide_by_linear(self.t, z % P)
+        return FrVec(quot), dvec.scalar_to_int(rem)
 
     # -- sparse accumulate ------------------------------------------------------
 

@@ -16,12 +16,26 @@ and ``_batch_open_dev``):
 
 Hiding mode: a hiding commitment adds r(τ)·γG for a random blinding
 polynomial r of degree 2, whose few coefficients stay host int lists.
+
+Disk checkpoint: ``setup`` is deterministic given (max_degree, τ, γ), so
+between its in-process memo and the build it looks for the table in a
+per-machine cache of the port's own format (``torch_srs_*.npz``: the planes
+as 16-bit limbs, H, βH and the γ powers compressed), and saves what it
+builds there.  ``SWTPU_SRS_DISK_CACHE=0`` turns it off;
+``SWTPU_SRS_CACHE_DIR`` names the directory (default
+``swtpu_torch_srs_cache`` under ``tempfile.gettempdir()``).  A file saved
+from one device loads onto any other.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+import tempfile
 import threading
+import zipfile
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Optional
 
 import numpy as np
@@ -62,6 +76,7 @@ class UniversalSRS:
         self.h = h
         self.beta_h = beta_h
         self.powers_of_gamma_g = powers_of_gamma_g
+        self._powers_list: Optional[list[G1Point]] = None
 
     @property
     def device(self) -> torch.device:
@@ -78,6 +93,19 @@ class UniversalSRS:
     @property
     def max_degree(self) -> int:
         return self.num_powers - 1
+
+    @property
+    def powers_of_g(self) -> list[G1Point]:
+        """The powers as host points, read back from the planes once, on
+        first use (1.57 M Python points at the bench's degree: the prover
+        never asks for them)."""
+        if self._powers_list is None:
+            self._powers_list = g1_limb.points_from_affine_planes(self.powers_xy)
+        return self._powers_list
+
+    def device_powers(self) -> torch.Tensor:
+        """The [2, 24, N] affine X/Y planes the device MSM reads."""
+        return self.powers_xy
 
     def power(self, i: int) -> G1Point:
         """τ^i·G, read back from the device."""
@@ -113,7 +141,7 @@ _SRS_MEMO_LOCK = threading.Lock()
 
 def setup(max_degree: int, rng, device=None) -> UniversalSRS:
     """Sample τ, γ and build the powers tables on ``device`` (the card by
-    default)."""
+    default), or take them from the memo or the disk checkpoint."""
     device = resolve(device)
     tau = Fr.rand(rng).value
     gamma = Fr.rand(rng).value
@@ -122,7 +150,10 @@ def setup(max_degree: int, rng, device=None) -> UniversalSRS:
         cached = _SRS_MEMO.get(memo_key)
     if cached is not None:
         return cached
-    srs = _setup_uncached(max_degree, tau, gamma, device)
+    srs = _load_srs_disk(memo_key[:3], device)
+    if srs is None:
+        srs = _setup_uncached(max_degree, tau, gamma, device)
+        _save_srs_disk(memo_key[:3], srs)
     with _SRS_MEMO_LOCK:
         if len(_SRS_MEMO) >= _SRS_MEMO_MAX:
             _SRS_MEMO.pop(next(iter(_SRS_MEMO)))
@@ -130,11 +161,98 @@ def setup(max_degree: int, rng, device=None) -> UniversalSRS:
     return srs
 
 
+# --------------------------------------------- disk checkpoint of the SRS --
+
+#: the port's own file format (the reference's ``srs_*`` files never mix with
+#: these: the prefixes differ, and so does each package's eviction)
+_SRS_DISK_FORMAT = 1
+_SRS_DISK_MAX_FILES = 4
+_SRS_DISK_PREFIX = "torch_srs_"
+#: errors of a missing, partial or foreign file: the load returns None
+LOAD_ERRORS = (OSError, KeyError, ValueError, EOFError, zipfile.BadZipFile)
+
+
+def _srs_disk_path(key) -> Optional[str]:
+    """The checkpoint of (max_degree, τ, γ), or None when the cache is off."""
+    if os.environ.get("SWTPU_SRS_DISK_CACHE") == "0":
+        return None
+    cache_dir = os.environ.get("SWTPU_SRS_CACHE_DIR",
+                               os.path.join(tempfile.gettempdir(), "swtpu_torch_srs_cache"))
+    tag = hashlib.sha256(repr((_SRS_DISK_FORMAT, *key)).encode()).hexdigest()[:24]
+    return os.path.join(cache_dir, f"{_SRS_DISK_PREFIX}{key[0]}_{tag}.npz")
+
+
+def save_npz_atomic(path: str, prefix: str, max_files: int, **arrays) -> None:
+    """Write ``arrays`` to ``path`` through a temporary file and an atomic
+    rename, first deleting the oldest ``prefix*.npz`` files of the directory
+    so that at most ``max_files`` remain; an OSError leaves no file."""
+    cache_dir = os.path.dirname(path)
+    try:
+        os.makedirs(cache_dir, exist_ok=True)
+        existing = sorted(
+            (os.path.join(cache_dir, f) for f in os.listdir(cache_dir)
+             if f.startswith(prefix) and f.endswith(".npz") and ".tmp." not in f),
+            key=os.path.getmtime,
+        )
+        while len(existing) >= max_files:
+            os.unlink(existing.pop(0))  # oldest first
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp.npz"
+        np.savez(tmp, **arrays)
+        os.replace(tmp, path)
+    except OSError:
+        pass
+
+
+def _save_srs_disk(key, srs: UniversalSRS) -> None:
+    path = _srs_disk_path(key)
+    if path is None:
+        return
+    small = np.frombuffer(
+        srs.h.serialize_compressed() + srs.beta_h.serialize_compressed()
+        + b"".join(p.serialize_compressed() for p in srs.powers_of_gamma_g),
+        dtype=np.uint8,
+    )
+    save_npz_atomic(path, _SRS_DISK_PREFIX, _SRS_DISK_MAX_FILES,
+                    powers=srs.powers_xy.cpu().numpy().astype(np.uint16), small=small,
+                    n_gamma=np.int64(len(srs.powers_of_gamma_g)))
+
+
+def _load_srs_disk(key, device) -> Optional[UniversalSRS]:
+    path = _srs_disk_path(key)
+    if path is None:
+        return None
+    try:
+        with np.load(path) as data:
+            powers = data["powers"]
+            small = data["small"].tobytes()
+            n_gamma = int(data["n_gamma"])
+    except LOAD_ERRORS:
+        return None
+    if powers.shape != (2, 24, key[0] + 1) or powers.dtype != np.uint16 \
+            or len(small) != 192 + 48 * n_gamma:
+        return None
+    # upload 16 bits a limb (as int16), widen on the device
+    planes = torch.from_numpy(powers.view(np.int16)).to(device).to(torch.int32) & 0xFFFF
+    return UniversalSRS(
+        planes,
+        G2Point.deserialize_compressed(small[:96]),
+        G2Point.deserialize_compressed(small[96:192]),
+        [G1Point.deserialize_compressed(small[192 + 48 * i : 240 + 48 * i])
+         for i in range(n_gamma)],
+    )
+
+
+@lru_cache(maxsize=1)
+def _generator_table() -> FixedBaseMSM:
+    """The generator's fixed-base table (8k host point adds), made once."""
+    return FixedBaseMSM(G1Point.generator(), window_bits=8)
+
+
 def _setup_uncached(max_degree: int, tau: int, gamma: int, device) -> UniversalSRS:
     g = G1Point.generator()
     h = G2Point.generator()
     beta_h = h.scalar_mul(tau)
-    table = FixedBaseMSM(g, window_bits=8)
+    table = _generator_table()
     gamma_powers = [table.mul(gamma * pow(tau, i, P) % P) for i in range(NUM_GAMMA_POWERS)]
     # τ^0..τ^D built on the device (log-doubling), then out of Montgomery form
     tau_powers = dvec.to_standard(dvec.powers_vec(tau, max_degree + 1, device))
@@ -198,6 +316,11 @@ class Randomness:
 
     blind: list[int]
     shifted_blind: Optional[list[int]] = None
+
+    @staticmethod
+    def empty(has_shift: bool = False) -> "Randomness":
+        """The zero blinding (a non-hiding commitment)."""
+        return Randomness(blind=[], shifted_blind=[] if has_shift else None)
 
     @staticmethod
     def rand(rng, has_shift: bool = False) -> "Randomness":

@@ -13,22 +13,38 @@ The proof is the 3-round Marlin AHP (:mod:`.ahp`, :mod:`.prover`) over KZG10
 with degree bounds (:mod:`simpleworks_tpu_torch.kzg.kzg10`), Fiat-Shamir via
 Blake2s + ChaCha20.  Index and prove run on the SRS's device (the card
 unless the setup named another); verify is host arithmetic and pairings.
-The reference's proving-key disk checkpoint and its device routing
-(``ops/accel.py``) are not ported.
+``ops/accel.py`` routes the prover's wide transforms and MSMs over several
+devices when they are set; the reference's size routing (small work to the
+host) is not ported.
+
+``index`` is memoized in the process and checkpointed on disk: a key indexed
+once loads in a second process with no index work (the reference ledger's
+pattern).  The checkpoint (``torch_pk_*.npz``: the vk's bytes and the twelve
+index polynomials as 16-bit Montgomery limbs; the K-domain evaluations are
+recomputed on load) is keyed on an SRS fingerprint and the matrices';
+``SWTPU_PK_DISK_CACHE=0`` turns it off and ``SWTPU_PK_CACHE_DIR`` names its
+directory (default ``swtpu_torch_pk_cache`` under ``tempfile.gettempdir()``).
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
+import tempfile
 import threading
 from dataclasses import dataclass, field
 from typing import Optional
 
+import numpy as np
+import torch
+
 from ..curves.bls12_377 import G1Point, G2Point
 from ..fields.bls12_377 import FR_MODULUS, Fr
+from ..fields.frvec import FrVec
 from ..hash.blake2s import blake2s_digest
 from ..kzg import kzg10
 from ..kzg.kzg10 import Commitment, UniversalSRS
+from ..poly.dense import DensePoly
 from ..utils.observability import PROVER_TIMER
 from ..utils.rng import test_rng
 from . import ahp
@@ -142,18 +158,106 @@ def _matrix_fingerprint(cs, raw) -> bytes:
     return h.digest()
 
 
+def _srs_fingerprint(srs: UniversalSRS) -> bytes:
+    """An id of an SRS that a second process can compute: its size, the
+    first two and the last power (their limbs, read from the planes), h and
+    βH.  τ is drawn deterministically, so two tables that agree here agree
+    throughout."""
+    h = hashlib.blake2s()
+    h.update(srs.num_powers.to_bytes(8, "little"))
+    cols = [0, min(1, srs.max_degree), srs.max_degree]
+    picked = srs.powers_xy.index_select(2, torch.tensor(cols, device=srs.device))
+    h.update(picked.cpu().numpy().astype("<u2").tobytes())
+    h.update(srs.h.serialize_compressed())
+    h.update(srs.beta_h.serialize_compressed())
+    return h.digest()
+
+
+# ------------------------------------------ disk checkpoint of the index --
+
+#: the port's own file format (never mixed with the reference's ``pk_*``)
+_PK_DISK_FORMAT = 1
+#: enough slots that the workloads' small keys do not evict the bench's
+_PK_DISK_MAX_FILES = 8
+_PK_DISK_PREFIX = "torch_pk_"
+_POLY_NAMES = [f"{kind}_{m}" for m in "abc" for kind in ("row", "col", "val", "row_col")]
+
+
+def _pk_disk_path(srs: UniversalSRS, matrix_fp: bytes) -> Optional[str]:
+    """The checkpoint of the key of these matrices over this SRS, or None
+    when the cache is off."""
+    if os.environ.get("SWTPU_PK_DISK_CACHE") == "0":
+        return None
+    cache_dir = os.environ.get("SWTPU_PK_CACHE_DIR",
+                               os.path.join(tempfile.gettempdir(), "swtpu_torch_pk_cache"))
+    key = b"%d|" % _PK_DISK_FORMAT + _srs_fingerprint(srs) + b"|" + matrix_fp
+    return os.path.join(cache_dir, f"{_PK_DISK_PREFIX}{hashlib.sha256(key).hexdigest()[:24]}.npz")
+
+
+def _save_pk_disk(path: str, pk: "IndexProverKey") -> None:
+    from .serialization import serialize_verifying_key
+
+    arrays = {"vk": np.frombuffer(serialize_verifying_key(pk.vk), dtype=np.uint8)}
+    for mat, m in zip(pk.index.matrices, "abc"):
+        for kind, poly in (("row", mat.row_poly), ("col", mat.col_poly), ("val", mat.val_poly),
+                           ("row_col", mat.row_col_poly)):
+            arrays[f"{kind}_{m}"] = poly.vec.t.cpu().numpy().astype(np.uint16)
+    kzg10.save_npz_atomic(path, _PK_DISK_PREFIX, _PK_DISK_MAX_FILES, **arrays)
+
+
+def _load_pk_disk(path: str, srs: UniversalSRS):
+    from .serialization import deserialize_verifying_key
+
+    try:
+        with np.load(path) as data:
+            vk_bytes = data["vk"].tobytes()
+            limbs = [data[name] for name in _POLY_NAMES]
+    except kzg10.LOAD_ERRORS:
+        return None
+    if any(a.dtype != np.uint16 or a.ndim != 2 or a.shape[0] != 16 for a in limbs):
+        return None
+    vk = deserialize_verifying_key(vk_bytes)
+    if vk.srs_max_degree != srs.max_degree:
+        return None
+    polys = [DensePoly(FrVec(torch.from_numpy(a.view(np.int16)).to(srs.device).to(torch.int32)
+                             & 0xFFFF)) for a in limbs]
+    pk = IndexProverKey(index=ahp.index_from_polys(vk.info, polys), srs=srs, vk=vk)
+    return pk, vk
+
+
 def index(srs: UniversalSRS, cs) -> tuple[IndexProverKey, IndexVerifierKey]:
     """Arithmetize and commit the index polynomials on the SRS's device
     (reference MarlinInst::index).  Memoized on (srs identity, matrix
+    content), and checkpointed on disk on (SRS fingerprint, matrix
     content)."""
     with PROVER_TIMER.region("index.host.to_matrices"):
         raw = cs.to_matrices()
     with PROVER_TIMER.region("index.host.fingerprint"):
-        memo_key = (id(srs), _matrix_fingerprint(cs, raw))
+        matrix_fp = _matrix_fingerprint(cs, raw)
+    memo_key = (id(srs), matrix_fp)
     with _INDEX_MEMO_LOCK:
         cached = _INDEX_MEMO.get(memo_key)
     if cached is not None:
         return cached
+    disk_path = _pk_disk_path(srs, matrix_fp)
+    result = None
+    if disk_path is not None:
+        with PROVER_TIMER.region("index.disk_load"):
+            result = _load_pk_disk(disk_path, srs)
+        if result is not None:
+            _fixup_num_instance(result[1].info, cs)  # not serialized (ark's IndexInfo)
+    if result is None:
+        result = _index_uncached(srs, cs, raw)
+        if disk_path is not None:
+            _save_pk_disk(disk_path, result[0])
+    with _INDEX_MEMO_LOCK:
+        if len(_INDEX_MEMO) >= _INDEX_MEMO_MAX:
+            _INDEX_MEMO.pop(next(iter(_INDEX_MEMO)))
+        _INDEX_MEMO[memo_key] = result
+    return result
+
+
+def _index_uncached(srs: UniversalSRS, cs, raw) -> tuple[IndexProverKey, IndexVerifierKey]:
     with PROVER_TIMER.region("index.arithmetize"):
         idx = ahp.index_matrices(cs, raw=raw, device=srs.device)
     if idx.info.max_degree > srs.max_degree:
@@ -179,12 +283,7 @@ def index(srs: UniversalSRS, cs) -> tuple[IndexProverKey, IndexVerifierKey]:
         gamma_g=srs.gamma_g if srs.powers_of_gamma_g else None,
         shift_powers={b: srs.power(srs.max_degree - b) for b in sorted(set(bounds))},
     )
-    result = (IndexProverKey(index=idx, srs=srs, vk=vk), vk)
-    with _INDEX_MEMO_LOCK:
-        if len(_INDEX_MEMO) >= _INDEX_MEMO_MAX:
-            _INDEX_MEMO.pop(next(iter(_INDEX_MEMO)))
-        _INDEX_MEMO[memo_key] = result
-    return result
+    return IndexProverKey(index=idx, srs=srs, vk=vk), vk
 
 
 # reference alias (src/marlin/mod.rs:88-94)

@@ -72,6 +72,20 @@ class Index:
     matrices: list[MatrixArithmetization]  # [A, B, C]
 
 
+def index_from_polys(info: IndexInfo, polys: list[DensePoly]) -> Index:
+    """The index of stored polynomials (row, col, val, row_col for A, then B,
+    then C), on their device: the K-domain evaluations are recomputed, one
+    NTT each."""
+    ensure(len(polys) == 12, f"expected 12 index polynomials, got {len(polys)}")
+    domain_k = Radix2Domain(info.domain_k_size)
+    matrices = []
+    for k in range(0, 12, 4):
+        row, col, val, row_col = polys[k : k + 4]
+        evals = [domain_k.fft_vec(poly.vec) for poly in (row, col, val, row_col)]
+        matrices.append(MatrixArithmetization(row, col, val, row_col, *evals))
+    return Index(info=info, matrices=matrices)
+
+
 def max_degree_for(num_constraints: int, num_variables: int, num_non_zero: int) -> int:
     """SRS degree needed: max(3n − 1 outer incl. the zk mask, 3m − 3 inner)."""
     n = next_pow2(max(num_constraints, num_variables, 2))

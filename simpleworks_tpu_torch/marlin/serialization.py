@@ -3,7 +3,11 @@
 Port of ``simpleworks_tpu/marlin/serialization.py`` (reference
 ``src/marlin/serialization.rs``: thin wrappers over arkworks
 ``CanonicalSerialize`` on the ark-marlin containers), byte for byte.  The
-proving-key serde is not ported (it goes with the proving-key checkpoint).
+proving key's bytes are the reference's too: its index polynomials leave
+Montgomery form on the device and come to the host in one copy, and the
+SRS powers are read back from the planes as points (compressed one by one;
+decompressing them costs ~2.5 ms a point in Python, so the serde suits small
+keys: the disk checkpoint is the full-scale route).
 
 The container layout here follows ark-marlin 0.3's ``Proof`` /
 ``IndexVerifierKey`` CanonicalSerialize shape — ordered struct fields,
@@ -26,17 +30,25 @@ from __future__ import annotations
 
 import struct
 
+import numpy as np
+import torch
+
 from ..curves.bls12_377 import G1Point, G2Point
+from ..device import resolve
 from ..errors import ensure
 from ..fields.bls12_377 import Fr
-from ..kzg.kzg10 import Commitment
+from ..fields.frvec import FrVec
+from ..kzg.kzg10 import Commitment, UniversalSRS
+from ..ops import g1_limb
+from ..poly.dense import DensePoly
 from . import (
     EVALUATION_ORDER,
     INDEX_POLYS,
+    IndexProverKey,
     IndexVerifierKey,
     MarlinProof,
 )
-from .ahp import IndexInfo, next_pow2
+from .ahp import IndexInfo, index_from_polys, next_pow2
 
 #: ark-marlin's per-round commitment grouping (Proof.commitments)
 ROUND_GROUPS = [["w", "z_a", "z_b", "mask"], ["t", "g_1", "h_1"], ["g_2", "h_2"]]
@@ -233,3 +245,63 @@ def deserialize_verifying_key(data: bytes) -> IndexVerifierKey:
         gamma_g=gamma_g,
         shift_powers=shift_powers,
     )
+
+
+def serialize_proving_key(pk) -> bytes:
+    """ProvingKey serde (reference serialization.rs:28-45): the u64-LE
+    length of the vk and the vk; the twelve index polynomials, each a u64
+    count and its coefficients as standard-form 32-byte LE Fr; the SRS
+    powers (a u64 count, compressed); h, βH; the γ powers (a u64 count,
+    compressed)."""
+    out = bytearray()
+    vk_bytes = serialize_verifying_key(pk.vk)
+    out += struct.pack("<Q", len(vk_bytes))
+    out += vk_bytes
+    for mat in pk.index.matrices:
+        for poly in (mat.row_poly, mat.col_poly, mat.val_poly, mat.row_col_poly):
+            out += struct.pack("<Q", len(poly.vec))
+            out += poly.vec.to_std_array().tobytes()
+    srs = pk.srs
+    out += struct.pack("<Q", srs.num_powers)
+    out += b"".join(p.serialize_compressed() for p in srs.powers_of_g)
+    out += srs.h.serialize_compressed()
+    out += srs.beta_h.serialize_compressed()
+    gamma_powers = srs.powers_of_gamma_g or []
+    out += struct.pack("<Q", len(gamma_powers))
+    out += b"".join(p.serialize_compressed() for p in gamma_powers)
+    return bytes(out)
+
+
+def deserialize_proving_key(data: bytes, device=None):
+    """An IndexProverKey from :func:`serialize_proving_key`'s bytes, its SRS
+    planes and index on ``device`` (the card by default); the K-domain
+    evaluations are recomputed there."""
+    device = resolve(device)
+    (vk_len,) = struct.unpack_from("<Q", data, 0)
+    off = 8
+    vk = deserialize_verifying_key(data[off : off + vk_len])
+    off += vk_len
+    polys = []
+    for _ in range(12):
+        (n_coeffs,) = struct.unpack_from("<Q", data, off)
+        off += 8
+        std = np.frombuffer(data, dtype="<u8", count=4 * n_coeffs, offset=off)
+        off += 32 * n_coeffs
+        polys.append(DensePoly(FrVec.from_std_array(std.reshape(-1, 4), device)))
+    (n_powers,) = struct.unpack_from("<Q", data, off)
+    off += 8
+    powers = [G1Point.deserialize_compressed(data[off + 48 * i : off + 48 * (i + 1)])
+              for i in range(n_powers)]
+    off += 48 * n_powers
+    h = G2Point.deserialize_compressed(data[off : off + 96])
+    beta_h = G2Point.deserialize_compressed(data[off + 96 : off + 192])
+    off += 192
+    gamma_powers = []
+    if off < len(data):
+        (n_gamma,) = struct.unpack_from("<Q", data, off)
+        off += 8
+        gamma_powers = [G1Point.deserialize_compressed(data[off + 48 * i : off + 48 * (i + 1)])
+                        for i in range(n_gamma)]
+    x, y, _z = g1_limb.points_to_limb_major_affine(powers, device)
+    srs = UniversalSRS(torch.stack([x, y]), h, beta_h, gamma_powers)
+    return IndexProverKey(index=index_from_polys(vk.info, polys), srs=srs, vk=vk)

@@ -9,8 +9,9 @@ the reference's ``uint32`` arrays.
 Each public op takes two such tensors of one shape (broadcast a ``[L, 1]``
 column with ``.expand``; sliced views are fine, the kernels take strides):
 
-* a tensor on the CPU goes to the plain version (int64 limb arithmetic —
-  torch has no uint32 add/shift/compare on the CPU);
+* a tensor on the CPU goes to the plain version (int64 limb arithmetic,
+  the multiply's column sums in exact float64 — torch has no uint32
+  add/shift/compare on the CPU);
 * a tensor on CUDA goes to the CUDA kernel of ``csrc/field_kernels.cu``, or
   the wrapper raises.  There is no fallback between the two.
 
@@ -48,13 +49,29 @@ POW_WINDOW = 4
 # ------------------------------------------------------------ plain versions --
 
 
+#: lanes from which one sequential carry sweep over the limb rows beats the
+#: parallel passes (each pass works on every lane; on the CPU the sweep is
+#: 3-6x faster at 8,192 lanes and slower below ~1,000)
+SWEEP_MIN_LANES = 2048
+
+
 def _normalize(v: torch.Tensor):
     """Carry-propagate int64 limb rows [L, B] (any sign, any size) into
     16-bit limbs -> (limbs mod 2^(16L), carry out of the top limb).
 
-    Parallel passes (every limb sheds its carry at once) until no carry is
-    left: two or three for random data, at most about L when a carry
-    ripples through a run of 0xFFFF limbs."""
+    Narrow batches take parallel passes (every limb sheds its carry at once)
+    until no carry is left: two or three for random data, at most about L
+    when a carry ripples through a run of 0xFFFF limbs.  Wide batches take
+    one sweep from the lowest limb up."""
+    if v.shape[1] >= SWEEP_MIN_LANES:
+        v = v.clone()
+        rows = v.unbind(0)
+        for lo, hi in zip(rows, rows[1:]):
+            hi.add_(lo >> LIMB_BITS)  # arithmetic shift: a borrow is a carry of −1
+            lo.bitwise_and_(LIMB_MASK)
+        top = rows[-1] >> LIMB_BITS
+        rows[-1].bitwise_and_(LIMB_MASK)
+        return v, top
     top = torch.zeros_like(v[0])
     while True:
         c = v >> LIMB_BITS  # arithmetic shift: a borrow is a carry of −1
@@ -71,35 +88,26 @@ def _p_col(field: LimbField, device: torch.device) -> torch.Tensor:
     return field.col(field.p_limbs, device, torch.int64)
 
 
-@lru_cache(maxsize=8)
-def _pow3(n_limbs: int, device: torch.device) -> torch.Tensor:
-    """[L, 1] int64: 3^i for limb i."""
-    return torch.tensor([3**i for i in range(n_limbs)], dtype=torch.int64, device=device)[:, None]
+def _reduce(v: torch.Tensor, field: LimbField) -> torch.Tensor:
+    """int64 limb rows [L + 1, B] (any sizes and signs) of a value
+    0 ≤ V < 2p -> V mod p as [L, B] int32 limbs: V and V − p carried in one
+    call over the two halves of an [L + 1, 2B] tensor, then V − p wherever it
+    is not negative (its carry out of the top limb is 0, not −1)."""
+    L, B = field.n_limbs, v.shape[1]
+    both = torch.cat([v, v], dim=1)
+    both[:L, B:] -= _p_col(field, v.device)
+    limbs, top = _normalize(both)
+    return torch.where(top[B:] >= 0, limbs[:L, B:], limbs[:L, :B]).to(torch.int32)
 
 
-def _geq(x: torch.Tensor, field: LimbField) -> torch.Tensor:
-    """x ≥ p for 16-bit limb rows [L, B]: the sign of the most significant
-    limb that differs, as the sign of Σ sign(x_i − p_i)·3^i."""
-    s = torch.sign(x - _p_col(field, x.device))
-    return (s * _pow3(field.n_limbs, x.device)).sum(dim=0) >= 0
+def _widen(x: torch.Tensor) -> torch.Tensor:
+    """[L, B] int64 limb rows -> [L + 1, B], a zero row on top."""
+    return torch.cat([x, torch.zeros_like(x[:1])])
 
 
-def _reduce_once(v: torch.Tensor, carry: torch.Tensor, field: LimbField) -> torch.Tensor:
-    """V = carry·2^(16L) + v < 2p -> V mod p (subtract p once when V ≥ p)."""
-    diff, _ = _normalize(v - _p_col(field, v.device))
-    return torch.where((carry > 0) | _geq(v, field), diff, v).to(torch.int32)
-
-
-@lru_cache(maxsize=8)
-def _diagonals(n_limbs: int, device: torch.device) -> torch.Tensor:
-    """[L·L] int64: row i·L + j of the limb outer product adds to column i + j."""
-    i = torch.arange(n_limbs, device=device)
-    return (i[:, None] + i[None, :]).reshape(-1)
-
-
-#: lanes a plain binary op works on at once on the CPU: its int64
-#: temporaries then stay in the caches (2-4x faster than one pass over a
-#: wide batch, and the limb outer product never takes more than a few MB)
+#: lanes a plain binary op works on at once on the CPU: its temporaries
+#: then stay in the caches (2-4x faster than one pass over a wide batch, and
+#: a product's columns never take more than a few MB)
 PLAIN_CHUNK = 8192
 
 
@@ -116,38 +124,48 @@ def _by_chunks(op):
     return chunked
 
 
+@lru_cache(maxsize=8)
+def _p_col_f64(field: LimbField, device: torch.device) -> torch.Tensor:
+    """[L, 1] float64: the limbs of p."""
+    return field.col(field.p_limbs, device, torch.float64)
+
+
 @_by_chunks
 def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.Tensor:
     """a·b·R⁻¹ mod p: schoolbook product, 16-bit REDC, one conditional
-    subtract — the arithmetic of the Pallas ``_mul_body``."""
-    L = field.n_limbs
-    a64, b64 = a.to(torch.int64), b.to(torch.int64)
-    t = torch.zeros((2 * L + 1, a.shape[1]), dtype=torch.int64, device=a.device)
-    # column sums of the limb outer product stay < 2L·2^32: no carries yet
-    t.index_add_(0, _diagonals(L, a.device), (a64[:, None, :] * b64[None, :, :]).reshape(L * L, -1))
-    p = _p_col(field, a.device)
+    subtract — the arithmetic of the Pallas ``_mul_body``.
+
+    The column sums run in float64, where every value is an integer below
+    2^53 and so exact: a column takes at most 2L products of 16-bit limbs
+    and the carries from below (< 2^38), a REDC digit is (t_i mod 2^16)·n0
+    mod 2^16, and t_i is divided by 2^16 only once it is ≡ 0 mod 2^16.
+    Multiply-adds of float64 rows run several times faster on the CPU than
+    int64 products and an ``index_add_`` of the limb outer product."""
+    L, B = a.shape
+    bf = b.to(torch.float64)
+    t = torch.zeros((2 * L + 1, B), dtype=torch.float64, device=a.device)
     rows = t.unbind(0)
+    for i, a_i in enumerate(a.to(torch.float64).unbind(0)):
+        t[i : i + L].addcmul_(a_i, bf)  # row a_i broadcast over b's L rows
+    p = _p_col_f64(field, a.device)
+    n0 = float(field.n0_16)
     for i in range(L):
-        m = (rows[i] * field.n0_16) & LIMB_MASK  # t[i] < 2^40: no int64 overflow
-        t[i : i + L] += m * p
-        rows[i + 1].add_(rows[i] >> LIMB_BITS)  # row i is now ≡ 0 mod 2^16
-    res, carry = _normalize(t[L:])  # rows L..2L: V < 2p, so row 2L is 0 or 1
-    return _reduce_once(res[:L], res[L] + carry, field)
+        m = torch.remainder(torch.remainder(rows[i], 65536.0).mul_(n0), 65536.0)
+        t[i : i + L].addcmul_(p, m)
+        rows[i + 1].add_(rows[i], alpha=2.0**-16)  # t_i ≡ 0 mod 2^16 now: an exact shift
+    return _reduce(t[L:].to(torch.int64), field)  # rows L..2L: V < 2p
 
 
 @_by_chunks
 def mod_add_plain(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.Tensor:
-    """(a + b) mod p: carry-propagate, then subtract p when the sum is ≥ p."""
-    res, carry = _normalize(a.to(torch.int64) + b.to(torch.int64))
-    return _reduce_once(res, carry, field)
+    """(a + b) mod p: the sum, less p where it is ≥ p."""
+    return _reduce(_widen(a.to(torch.int64) + b.to(torch.int64)), field)
 
 
 @_by_chunks
 def mod_sub_plain(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.Tensor:
-    """(a − b) mod p: borrow-propagate, then add p back when it wrapped."""
-    diff, borrow = _normalize(a.to(torch.int64) - b.to(torch.int64))
-    plus, _ = _normalize(diff + _p_col(field, a.device))
-    return torch.where(borrow < 0, plus, diff).to(torch.int32)
+    """(a − b) mod p: a − b + p, less p where it is ≥ p."""
+    return _reduce(_widen(a.to(torch.int64) - b.to(torch.int64) + _p_col(field, a.device)), field)
 
 
 @lru_cache(maxsize=32)

@@ -40,7 +40,7 @@ from ..device import resolve
 from ..fields.bls12_377 import FR_MODULUS, fr_root_of_unity
 from ..fields.device import FR, LIMB_BITS, LIMB_MASK, split_words, to_mont
 from ._build import LAUNCHES, count_launch
-from .mont_mul import _normalize, _on_cuda, _raise_on, _reduce_once, mont_mul
+from .mont_mul import _on_cuda, _raise_on, _reduce, mont_mul
 
 P = FR_MODULUS
 L = 16            # 16-bit limbs per element
@@ -80,8 +80,7 @@ def ntt_reduce_plain(c: torch.Tensor) -> torch.Tensor:
         t[i : i + L] += prod & LIMB_MASK
         t[i + 1 : i + L + 1] += prod >> LIMB_BITS
         t[i + 1] += t[i] >> LIMB_BITS
-    res, top = _normalize(t[REDC_K : REDC_K + L].clone())
-    return _reduce_once(res, t[REDC_K + L] + top, FR)
+    return _reduce(t[REDC_K : REDC_K + L + 1], FR)
 
 
 def ntt_reduce(c: torch.Tensor) -> torch.Tensor:

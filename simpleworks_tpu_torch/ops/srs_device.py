@@ -11,6 +11,8 @@ mixed adds read.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from ..curves.bls12_377 import G1Point
@@ -21,8 +23,11 @@ NUM_WINDOWS = 32  # 256 / 8
 CHUNK = 1 << 19  # lanes per pass (bounds the temporaries of the composed add)
 
 
+@lru_cache(maxsize=4)
 def _window_table(base: G1Point) -> list[G1Point]:
-    """[w*256 + d] = d · 2^(8w) · base (row 0 of each window = identity)."""
+    """[w*256 + d] = d · 2^(8w) · base (row 0 of each window = identity);
+    8k host point adds, made once a base (every setup's base is the
+    generator)."""
     table: list[G1Point] = []
     cur = base
     for _w in range(NUM_WINDOWS):
@@ -35,12 +40,18 @@ def _window_table(base: G1Point) -> list[G1Point]:
     return table
 
 
+@lru_cache(maxsize=4)
+def _table_planes(base: G1Point, device: torch.device) -> torch.Tensor:
+    """:func:`_window_table` as [3, 24, 8192] Montgomery planes on ``device``."""
+    return torch.stack(g1_limb.points_to_limb_major(_window_table(base), device))
+
+
 def fixed_base_powers_device(base: G1Point, scalars_std: torch.Tensor):
     """out[i] = scalars[i]·base for standard-form scalars given as [16, N]
     16-bit limbs, on their device -> Jacobian ([24, N],)*3 Montgomery planes."""
     dev = scalars_std.device
     n = scalars_std.shape[1]
-    table = torch.stack(g1_limb.points_to_limb_major(_window_table(base), dev))  # [3, 24, 8192]
+    table = _table_planes(base, dev)
     outs = []
     for lo in range(0, n, CHUNK):
         sc = scalars_std[:, lo : lo + CHUNK]

@@ -41,6 +41,10 @@ class DensePoly:
     def zero(device=None) -> "DensePoly":
         return DensePoly(FrVec.zeros(0, device))
 
+    @staticmethod
+    def constant(c: int, device=None) -> "DensePoly":
+        return DensePoly([c], device)
+
     def degree(self) -> int:
         return len(self.vec) - 1
 

@@ -1,11 +1,14 @@
 """Radix-2 evaluation domains over BLS12-377 Fr (2-adicity 47).
 
 Port of ``simpleworks_tpu/poly/domain.py``.  The vector transforms take an
-:class:`~simpleworks_tpu_torch.fields.frvec.FrVec` and run the NTT of
-:mod:`simpleworks_tpu_torch.ops.ntt` on its device; :func:`ntt_host` and the
-list methods are the pure-Python oracle (and the verifier's small
-transforms).  The reference's sharded and native routes of
-``_transform_vec`` are not ported.
+:class:`~simpleworks_tpu_torch.fields.frvec.FrVec` and run through
+``dvec.fft``/``ifft``: the NTT of :mod:`simpleworks_tpu_torch.ops.ntt` on its
+device, or the sharded 4-step NTT when :mod:`..ops.accel` routes a transform
+there.  :func:`ntt_host`, ``fft`` and ``ifft`` are the pure-Python oracle (and
+the verifier's small transforms); the other list methods (``coset_fft``,
+``coset_ifft``, ``divide_by_vanishing``, ``lagrange_coeffs_at``) run the
+vector forms on ``device`` (the card by default) and return ints.  The
+reference's native (C++) route of ``_transform_vec`` is not ported.
 """
 
 from __future__ import annotations
@@ -51,6 +54,13 @@ def ntt_host(values: list[int], omega: int) -> list[int]:
     return a
 
 
+def _trim(values: list[int]) -> list[int]:
+    n = len(values)
+    while n and values[n - 1] == 0:
+        n -= 1
+    return values[:n]
+
+
 class Radix2Domain:
     """Multiplicative subgroup H = <g> of size 2^k with FFT/coset helpers."""
 
@@ -89,6 +99,25 @@ class Radix2Domain:
     def ifft(self, evals: list[int]) -> list[int]:
         ensure(len(evals) == self.size, "evaluation count != domain size")
         return [c * self.size_inv % P for c in ntt_host(list(evals), self.group_gen_inv)]
+
+    def coset_fft(self, coeffs: list[int], shift: int, device=None) -> list[int]:
+        """Evaluations over the coset shift·H."""
+        return self.coset_fft_vec(FrVec.from_ints(coeffs, device), shift).to_ints()
+
+    def coset_ifft(self, evals: list[int], shift: int, device=None) -> list[int]:
+        return self.coset_ifft_vec(FrVec.from_ints(evals, device), shift).to_ints()
+
+    def divide_by_vanishing(self, coeffs: list[int], device=None) -> tuple[list[int], list[int]]:
+        """(quotient, remainder) of division by X^n − 1, trailing zeros
+        trimmed (below n coefficients: no quotient, the input as it is)."""
+        if len(coeffs) < self.size:
+            return [], list(coeffs)
+        quot, rem = self.divide_by_vanishing_vec(FrVec.from_ints(coeffs, device))
+        return _trim(quot.to_ints()), _trim(rem.to_ints())
+
+    def lagrange_coeffs_at(self, point: int, device=None) -> list[int]:
+        """L_i(point) for all i."""
+        return self.lagrange_coeffs_vec(point, device).to_ints()
 
     # -- FrVec transforms (on the vector's device) ----------------------------
 

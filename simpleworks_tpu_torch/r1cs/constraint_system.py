@@ -13,19 +13,14 @@ columns ``1..num_instance`` are the public inputs, witnesses follow.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field as dataclass_field
-from typing import Callable, Optional
+from typing import NamedTuple, Optional
 
 
-@dataclass(frozen=True)
-class Variable:
+class Variable(NamedTuple):
     """A variable handle: kind in {'one', 'instance', 'witness'}."""
 
     kind: str
     index: int
-
-    def __post_init__(self):
-        assert self.kind in ("one", "instance", "witness")
 
 
 ONE = Variable("one", 0)
@@ -47,40 +42,46 @@ class LinearCombination:
 
     @classmethod
     def from_terms(cls, field_cls, pairs):
-        lc = cls(field_cls)
         p = field_cls.PARAMS.modulus
+        terms: dict[Variable, int] = {}
         for coeff, var in pairs:
             c = int(coeff) % p
             if c:
-                lc.terms[var] = (lc.terms.get(var, 0) + c) % p
-                if not lc.terms[var]:
-                    del lc.terms[var]
-        return lc
+                nc = (terms.get(var, 0) + c) % p
+                if nc:
+                    terms[var] = nc
+                else:
+                    del terms[var]
+        return cls(field_cls, terms)
 
-    def __add__(self, other):
+    def _combine(self, other, sign: int):
         if isinstance(other, Variable):
             other = LinearCombination.from_terms(self.field, [(1, other)])
-        out = LinearCombination(self.field, dict(self.terms))
+        out = dict(self.terms)
         p = self.field.PARAMS.modulus
         for var, c in other.terms.items():
-            nc = (out.terms.get(var, 0) + c) % p
+            nc = (out.get(var, 0) + sign * c) % p
             if nc:
-                out.terms[var] = nc
-            elif var in out.terms:
-                del out.terms[var]
-        return out
+                out[var] = nc
+            elif var in out:
+                del out[var]
+        return LinearCombination(self.field, out)
+
+    def __add__(self, other):
+        return self._combine(other, 1)
 
     def __sub__(self, other):
-        if isinstance(other, Variable):
-            other = LinearCombination.from_terms(self.field, [(1, other)])
-        return self + other * (self.field.PARAMS.modulus - 1)
+        return self._combine(other, -1)
 
     def __mul__(self, scalar: int):
         p = self.field.PARAMS.modulus
         s = int(scalar) % p
-        return LinearCombination(
-            self.field, {v: c * s % p for v, c in self.terms.items() if c * s % p}
-        )
+        out = {}
+        for v, c in self.terms.items():
+            cs = c * s % p
+            if cs:
+                out[v] = cs
+        return LinearCombination(self.field, out)
 
     def is_zero(self) -> bool:
         return not self.terms

@@ -32,6 +32,15 @@ from simpleworks_tpu_torch.utils.rng import test_rng
 torch.set_num_threads(1)  # host arithmetic only: more threads only contend with the other workers
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_disk_checkpoints():
+    """The disk checkpoints off: every setup and index of this file is built."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SWTPU_SRS_DISK_CACHE", "0")
+        mp.setenv("SWTPU_PK_DISK_CACHE", "0")
+        yield
+
+
 def seeded_values(modulus: int, n: int, seed: int) -> list[int]:
     """n values below ``modulus`` from a seed, with 0, 1 and modulus - 1 first."""
     rng = np.random.default_rng(seed)
@@ -137,3 +146,66 @@ def test_run_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run.main(["--full", "merkle-tree"])
+
+
+# ------------------------------------------------------- observability ----
+
+
+def build_namespaced(cs_cls, one, field):
+    """tests/test_apps.py::test_constraint_accounting's circuit, plus an
+    unattributed constraint."""
+    cs = cs_cls(field)
+    with cs.namespace("layer_a"):
+        v = cs.new_witness_variable(1)
+        cs.enforce_constraint(cs.lc((1, v)), cs.lc((1, one)), cs.lc((1, v)))
+        with cs.namespace("inner"):
+            cs.enforce_constraint(cs.lc((1, v)), cs.lc((1, one)), cs.lc((1, v)))
+    with cs.namespace("layer_b"):
+        cs.enforce_constraint(cs.lc((1, v)), cs.lc((1, one)), cs.lc((1, v)))
+    cs.enforce_constraint(cs.lc((1, v)), cs.lc((1, one)), cs.lc((1, v)))
+    return cs
+
+
+def test_observability_matches_reference(monkeypatch, capsys, tmp_path):
+    """The constraint accounting and the circuit summary give the
+    reference's strings; the timer's report is the reference's format; the
+    trace switch prints it; the profiler context writes a trace."""
+    from simpleworks_tpu.r1cs.constraint_system import ONE as REF_ONE
+    from simpleworks_tpu.r1cs.constraint_system import ConstraintSystem as RefCS
+    from simpleworks_tpu.utils import observability as ref_obs
+    from simpleworks_tpu_torch.r1cs.constraint_system import ONE, ConstraintSystem
+    from simpleworks_tpu_torch.utils import observability as obs
+
+    cs, ref_cs = build_namespaced(ConstraintSystem, ONE, ConstraintF), build_namespaced(
+        RefCS, REF_ONE, RefF)
+    counts = obs.constraint_counts_by_namespace(cs)
+    assert counts == ref_obs.constraint_counts_by_namespace(ref_cs) == {
+        "layer_a": 1, "layer_a/inner": 1, "layer_b": 1, "<root>": 1}
+    assert obs.summarize_circuit(cs) == ref_obs.summarize_circuit(ref_cs)
+    assert "constraints: 4" in obs.summarize_circuit(cs)
+
+    timer, ref_timer = obs.KernelTimer(), ref_obs.KernelTimer()
+    for t in (timer, ref_timer):
+        for label in ("a", "b", "a"):
+            with t.region(label):
+                pass
+        t.totals.update({"a": 0.5, "b": 1.25})  # fixed seconds: the strings compare
+    assert timer.report() == ref_timer.report() == "b: 1.250s over 1 calls\na: 0.500s over 2 calls"
+    timer.reset()
+    assert timer.report() == "" and timer.counts == {}
+
+    monkeypatch.setattr(obs, "PROVER_TIMER", ref_timer)
+    monkeypatch.delenv("SWTPU_TRACE", raising=False)
+    obs.maybe_report_prover("quiet")
+    assert capsys.readouterr().err == ""
+    monkeypatch.setenv("SWTPU_TRACE", "1")
+    obs.maybe_report_prover("prove")
+    assert capsys.readouterr().err == f"[trace] prove\n{ref_timer.report()}\n"
+
+    monkeypatch.delenv("SWTPU_TORCH_PROFILE", raising=False)
+    with obs.maybe_profile("off") as prof:
+        assert prof is None
+    monkeypatch.setenv("SWTPU_TORCH_PROFILE", str(tmp_path))
+    with obs.maybe_profile("on") as prof:
+        torch.ones(4).add_(1)
+    assert prof is not None and (tmp_path / "on" / "trace.json").stat().st_size > 0

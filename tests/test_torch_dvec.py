@@ -125,3 +125,22 @@ def test_host_bridges_round_trip():
     assert dvec.scalar_to_int(t[:, 2:3]) == P - 1
     assert dvec.to_ints(dvec.pad_to(t, 7)) == vals + [0, 0]
     assert dvec.to_ints(dvec.const_vec(9, 3, CPU)) == [9, 9, 9]
+
+
+def test_host_bridges_match_reference():
+    """``from_frvec`` / ``to_frvec`` against the reference's (its FrVec is a
+    host [N, 4] u64 array, the port's a device tensor: the limbs compare),
+    and ``mont_scalar_np``'s column."""
+    from simpleworks_tpu.fields.frvec import FrVec as RefFrVec
+    from simpleworks_tpu_torch.fields.frvec import FrVec
+
+    vals = [int.from_bytes(rng.bytes(33), "little") % P for _ in range(N)]
+    ref_t = np.asarray(ref.from_frvec(RefFrVec.from_ints(vals)))
+    got = dvec.from_frvec(FrVec.from_ints(vals, CPU))
+    assert same(got, ref_t)
+    back = dvec.to_frvec(got)
+    assert back.t is got and back.to_ints() == vals == ref.to_frvec(ref_t).to_ints()
+    for s in (0, 1, 123456789, P - 1):
+        col = dvec.mont_scalar_np(s)
+        assert col.dtype == np.uint32 and np.array_equal(col, ref.mont_scalar_np(s))
+        assert torch.equal(torch.from_numpy(col.astype(np.int32)), mont_scalar(s, device=CPU))

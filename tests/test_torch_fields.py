@@ -171,3 +171,83 @@ def test_wrappers_check_inputs():
     before = dict(mm.LAUNCHES)
     mm.mont_mul(a, a, FR)
     assert mm.LAUNCHES == before  # the plain CPU path launches no kernel
+
+
+# ----------------------------------------------------------- DeviceField --
+
+DF_LANES = 16
+DF_EXPONENT = 5  # a short exponent keeps the reference's unrolled chain cheap
+
+
+@pytest.fixture(scope="module", params=[FR, FQ], ids=["fr", "fq"])
+def device_field_pair(request):
+    """Both packages' DeviceField of one field, seeded inputs (0, 1 and p−1
+    among them) and the reference's results of every op, computed once in
+    one jitted call of its own methods (its eager ops cost ~4 s a field)."""
+    import jax
+    import jax.numpy as jnp
+
+    field = request.param
+    ref_df = ref_device.DeviceField(field.params)
+    a_np = canonical_limbs(field, DF_LANES, 11)
+    b_np = canonical_limbs(field, DF_LANES, 12)[:, ::-1].copy()
+    cond = np.arange(DF_LANES) % 3 == 0
+
+    def ops(a, b, c):
+        return dict(add=ref_df.add(a, b), sub=ref_df.sub(a, b), neg=ref_df.neg(a),
+                    mul=ref_df.mul(a, b), square=ref_df.square(a),
+                    mul_scalar_mont=ref_df.mul_scalar_mont(a, b[4]),
+                    pow=ref_df.pow_host_exponent(a, DF_EXPONENT), select=ref_df.select(c, a, b),
+                    is_zero=ref_df.is_zero(a), eq=ref_df.eq(a, a.at[3].set(b[3])),
+                    normalize=ref_df.normalize(a + b))
+
+    ref = jax.jit(ops)(jnp.asarray(a_np.T), jnp.asarray(b_np.T), jnp.asarray(cond))
+    ref = {k: np.asarray(v) for k, v in ref.items()}
+    return field, ref_df, device.DeviceField(field.params), a_np, b_np, cond, ref
+
+
+def test_device_field_constants_match_reference(device_field_pair):
+    field, ref_df, df, *_ = device_field_pair
+    assert df.n_limbs == ref_df.n_limbs and df.field is field
+    for name in ("p_int", "r_int", "r2_int", "n0"):
+        assert getattr(df, name) == getattr(ref_df, name), name
+    for name in ("p_limbs", "r_limbs", "r2_limbs", "zero", "one_mont"):
+        got, want = getattr(df, name), getattr(ref_df, name)
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
+    v = int.from_bytes(np.random.default_rng(13).bytes(48), "little") % field.p
+    assert np.array_equal(device.int_to_limbs(v, df.n_limbs), ref_device.int_to_limbs(v, df.n_limbs))
+    assert device.limbs_to_int(device.int_to_limbs(v, df.n_limbs)) == ref_device.limbs_to_int(
+        ref_device.int_to_limbs(v, df.n_limbs)) == v
+
+
+def test_device_field_ops_match_reference(device_field_pair):
+    """Every op on [L, B] tensors against the reference's on [B, L] arrays,
+    and against host integers; no kernel launch on the CPU."""
+    field, ref_df, df, a_np, b_np, cond, ref = device_field_pair
+    p = field.p
+    a, b = device.from_reference_limbs(a_np, CPU), device.from_reference_limbs(b_np, CPU)
+    before = dict(mm.LAUNCHES)
+    got = dict(add=df.add(a, b), sub=df.sub(a, b), neg=df.neg(a), mul=df.mul(a, b),
+               square=df.square(a), mul_scalar_mont=df.mul_scalar_mont(a, b[:, 4:5]),
+               pow=df.pow_host_exponent(a, DF_EXPONENT),
+               select=df.select(torch.from_numpy(cond), a, b),
+               normalize=df.normalize(a + b))
+    assert mm.LAUNCHES == before
+    for name, t in got.items():
+        assert t.dtype == torch.int32 and t.shape == a.shape, name
+        assert np.array_equal(device.to_reference_limbs(t), ref[name].T), name
+    x, y = df.from_mont(a), df.from_mont(b)
+    assert df.from_mont(got["mul"]) == [u * v % p for u, v in zip(x, y)]
+    assert df.from_mont(got["pow"]) == [pow(u, DF_EXPONENT, p) for u in x]
+    assert df.is_zero(a).tolist() == ref["is_zero"].tolist() == [u == 0 for u in x]
+    a_eq = a.clone()
+    a_eq[:, 3] = b[:, 3]
+    assert df.eq(a, a_eq).tolist() == ref["eq"].tolist()
+    # a column broadcasts over the lanes; an exponent past 384 bits is taken mod p − 1
+    assert torch.equal(df.add(a, b[:, 4:5]), df.add(a, b[:, 4:5].expand_as(a)))
+    big = (p - 1) * (1 << 200) + DF_EXPONENT
+    assert torch.equal(df.pow_host_exponent(a, big), got["pow"])
+    assert df.from_mont(df.pow_host_exponent(a, (p - 1) << 200)) == [int(u != 0) for u in x]
+    assert df.from_mont(df.to_mont(x, CPU)) == x
+    assert np.array_equal(device.to_reference_limbs(df.to_mont(x, CPU)),
+                          np.asarray(ref_df.to_mont(x)).T)

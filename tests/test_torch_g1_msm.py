@@ -471,3 +471,55 @@ def test_fixed_base_powers_match_reference():
     affine = srs_device.fixed_base_powers_affine(G, std)
     assert torch.equal(affine, g1_limb.native_points_to_limb_major(
         native.g1_normalize_arr(expected), CPU))
+
+
+# --------------------------------------------- curves/g1_device (batched) --
+
+
+def test_g1_device_batch_ops_match_host_point_law():
+    """``curves.g1_device`` on a batch holding the identity, a doubling
+    (P + P), a cancellation (P + (−P)) and random pairs, against the JAX
+    package's host point law (its JAX twins are eager scans: ~1 min for a
+    tree of 8 points here)."""
+    from simpleworks_tpu_torch.curves import g1_device
+
+    ref_g = ref_curves.G1Point.generator()
+    ps = [ref_g.scalar_mul(s) for s in rand_scalars(6)] + [ref_curves.G1Point.identity()] * 2
+    qs = [ref_g.scalar_mul(s) for s in rand_scalars(8)]
+    qs[1], qs[2], qs[7] = ps[1], ps[2].neg(), ps[3]  # doubling, cancellation, identity + Q
+    to_port = lambda pts: [G1Point(p.X, p.Y, p.Z) for p in pts]  # noqa: E731
+    p_dev = g1_device.points_to_device(to_port(ps), CPU)
+    q_dev = g1_device.points_to_device(to_port(qs), CPU)
+    assert g1_device.points_from_device(p_dev) == to_port(ps)
+    assert g1_device.is_identity(p_dev).tolist() == [p.is_identity() for p in ps]
+    sums = g1_device.points_from_device(g1_device.add(p_dev, q_dev))
+    assert [ref_point(s) for s in sums] == [p.add(q) for p, q in zip(ps, qs)]
+    twice = g1_device.points_from_device(g1_device.double(p_dev))
+    assert [ref_point(s) for s in twice] == [p.double() for p in ps]
+    ident = g1_device.identity_like(8, CPU)
+    assert g1_device.is_identity(ident).all()
+    cond = torch.tensor([k % 2 == 0 for k in range(8)])
+    picked = g1_device.points_from_device(g1_device.select_point(cond, p_dev, ident))
+    assert [ref_point(s) for s in picked] == [p if k % 2 == 0 else ref_curves.G1Point.identity()
+                                              for k, p in enumerate(ps)]
+    total = g1_device.points_from_device(g1_device.tree_reduce(p_dev))
+    expected = ref_curves.G1Point.identity()
+    for p in ps:
+        expected = expected.add(p)
+    assert len(total) == 1 and ref_point(total[0]) == expected
+    with pytest.raises(ValueError, match="power-of-two"):
+        g1_device.tree_reduce(tuple(c[:, :6] for c in p_dev))
+    assert g1_device.fq_device_field().field is FQ
+
+
+def test_g1_device_fixed_base_ladder_matches_host_scalar_mul():
+    """The ladder at 20 bits (the card checks 253) on scalars with bits
+    above the ladder's (ignored, as in the reference), zero and one."""
+    from simpleworks_tpu_torch.curves import g1_device
+
+    bits = 20
+    ref_base = ref_curves.G1Point.generator().scalar_mul(7)
+    scalars = rand_scalars(5) + [0, 1, (1 << bits) - 1]
+    out = g1_device.points_from_device(g1_device.scalar_mul_fixed_base_batch(
+        G1Point(ref_base.X, ref_base.Y, ref_base.Z), scalars, num_bits=bits, device=CPU))
+    assert [ref_point(p) for p in out] == [ref_base.scalar_mul(s % (1 << bits)) for s in scalars]

@@ -27,6 +27,16 @@ from simpleworks_tpu_torch.utils.rng import test_rng
 
 torch.set_num_threads(1)  # host arithmetic only: more threads only contend with the other workers
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_disk_checkpoints():
+    """The disk checkpoints off: every setup and index of this file is built."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SWTPU_SRS_DISK_CACHE", "0")
+        mp.setenv("SWTPU_PK_DISK_CACHE", "0")
+        yield
+
+
 #: each package's modules, under one set of names
 PACKAGES = {
     "port": dict(poseidon=poseidon, pedersen=pedersen, pedersen_gadget=pedersen_gadget,

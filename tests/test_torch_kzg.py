@@ -21,6 +21,16 @@ from simpleworks_tpu_torch.utils.rng import test_rng
 CPU = torch.device("cpu")
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_disk_checkpoints():
+    """The disk checkpoints off: every setup and index of this file is built."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SWTPU_SRS_DISK_CACHE", "0")
+        mp.setenv("SWTPU_PK_DISK_CACHE", "0")
+        yield
+
+
 MAX_DEGREE = 1023
 rng = np.random.default_rng(7)
 

@@ -33,6 +33,16 @@ from simpleworks_tpu_torch.r1cs.constraint_system import ONE, ConstraintSystem
 CPU = torch.device("cpu")
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_disk_checkpoints():
+    """The disk checkpoints off: every setup and index of this file is built."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SWTPU_SRS_DISK_CACHE", "0")
+        mp.setenv("SWTPU_PK_DISK_CACHE", "0")
+        yield
+
+
 #: SRS(16, 16, 32): degree 93, enough for every circuit below (the chain of
 #: 5 needs 45)
 SRS_SIZES = (16, 16, 32)

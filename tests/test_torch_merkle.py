@@ -24,6 +24,16 @@ from simpleworks_tpu_torch.merkle.simple_merkle_tree import (
 
 torch.set_num_threads(1)  # host arithmetic only: more threads only contend with the other workers
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_disk_checkpoints():
+    """The disk checkpoints off: every setup and index of this file is built."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SWTPU_SRS_DISK_CACHE", "0")
+        mp.setenv("SWTPU_PK_DISK_CACHE", "0")
+        yield
+
+
 #: the reference's demo shape of the self-proving tree (examples/run.py): a
 #: 2-byte leaf window, the 512-bit two-to-one window, 2 leaves
 TINY_LEAF_WINDOW = (4, 4)

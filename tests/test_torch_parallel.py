@@ -40,6 +40,16 @@ from simpleworks_tpu_torch.r1cs.satisfiability import DeviceR1CS
 
 torch.set_num_threads(1)  # more threads only contend with the other test workers
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_disk_checkpoints():
+    """The disk checkpoints off: every setup and index of this file is built."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SWTPU_SRS_DISK_CACHE", "0")
+        mp.setenv("SWTPU_PK_DISK_CACHE", "0")
+        yield
+
+
 CPU = torch.device("cpu")
 CPU8 = ["cpu"] * 8
 #: tests/test_parallel.py::test_sharded_witness_dp's rows of the manual
@@ -228,7 +238,10 @@ def test_prove_bytes_one_vs_eight_shards(srs_pair, monkeypatch):
     monkeypatch.setattr(ntt_sharded, "sharded_transform", counted("ntt", transform))
     monkeypatch.setattr(msm_sharded, "sharded_msm", counted("msm", msm))
     monkeypatch.setattr(accel, "SHARDED_NTT_THRESHOLD", 128)
-    monkeypatch.setattr(accel, "SHARDED_MSM_THRESHOLD", 64)
+    # the commits of ≥ 256 coefficients (g_2, h_2 and both openings): each
+    # sharded MSM runs eight host Pippengers, whose bucket sums dominate at
+    # a few dozen points a shard
+    monkeypatch.setattr(accel, "SHARDED_MSM_THRESHOLD", 256)
     accel.set_prover_devices(CPU8)
     try:
         proof = marlin.prove(pk, cs)

@@ -35,6 +35,16 @@ from simpleworks_tpu_torch.utils.rng import test_rng
 
 torch.set_num_threads(1)  # more threads only contend with the other test workers
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_disk_checkpoints():
+    """The disk checkpoints off: every setup and index of this file is built."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SWTPU_SRS_DISK_CACHE", "0")
+        mp.setenv("SWTPU_PK_DISK_CACHE", "0")
+        yield
+
+
 CPU = torch.device("cpu")
 SRS_SIZES = (100, 25, 300)  # the proof-pipeline workload's SRS
 VALUES = [3, 5, 8, 13]

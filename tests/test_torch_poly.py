@@ -12,6 +12,7 @@ from simpleworks_tpu.poly.dense import DensePoly as RefPoly
 from simpleworks_tpu.poly.domain import Radix2Domain as RefDomain
 from simpleworks_tpu_torch.fields import dvec
 from simpleworks_tpu_torch.fields.bls12_377 import FR_MODULUS as P
+from simpleworks_tpu_torch.fields.device import from_reference_limbs
 from simpleworks_tpu_torch.fields.frvec import FrVec, SpmvPlan
 from simpleworks_tpu_torch.poly.dense import DensePoly
 from simpleworks_tpu_torch.poly.domain import Radix2Domain
@@ -122,3 +123,56 @@ def test_dense_poly_ops_match_reference():
     assert DensePoly.from_evals(Radix2Domain(8), port(evals)).coeffs == \
         RefPoly.from_evals(RefDomain(8), RefFrVec.from_ints(evals)).coeffs
     assert DensePoly.zero(CPU).is_zero() and (pa - pa).is_zero()
+
+
+def test_frvec_bridges_and_helpers_match_reference():
+    """The standard-form [N, 4] u64 arrays (the serde's layout), the device
+    limbs, ``copy``, ``mul_add``, ``horner`` and ``div_linear`` against the
+    reference's FrVec on the same values."""
+    a, b, c = rand_ints(13), rand_ints(13), rand_ints(13)
+    a[1], a[2] = 0, P - 1
+    pa, ra = port(a), RefFrVec.from_ints(a)
+    std = pa.to_std_array()
+    assert std.dtype == np.dtype("<u8") and std.shape == (13, 4)
+    assert np.array_equal(std, ra.to_std_array())
+    assert FrVec.from_std_array(ra.to_std_array(), CPU).to_ints() == a
+    assert np.array_equal(dvec.to_standard(FrVec.from_std_array(std, CPU).t), dvec.to_standard(pa.t))
+    limbs = pa.to_device_limbs()
+    assert np.array_equal(limbs.numpy().astype(np.uint32).T, ra.to_device_limbs())
+    assert FrVec.from_device_limbs(from_reference_limbs(ra.to_device_limbs().T, CPU)).to_ints() == a
+    assert FrVec.from_device_limbs(limbs).t is limbs
+    dup = pa.copy()
+    dup.t[:, 0] = 0
+    assert pa.to_ints() == a and dup.t.data_ptr() != pa.t.data_ptr()
+    assert pa.mul_add(port(b), port(c)).to_ints() == \
+        ra.mul_add(RefFrVec.from_ints(b), RefFrVec.from_ints(c)).to_ints()
+    z = rand_ints(1)[0]
+    assert pa.horner(z) == ra.horner(z) and FrVec.zeros(0, CPU).horner(z) == 0
+    quot, rem = pa.div_linear(z)
+    ref_quot, ref_rem = ra.div_linear(z)
+    assert quot.to_ints() == ref_quot.to_ints() and rem == ref_rem
+    empty_q, empty_r = FrVec.zeros(0, CPU).div_linear(z)
+    assert len(empty_q) == 0 and empty_r == 0
+
+
+@pytest.mark.parametrize("size, n_coeffs", [(8, 8), (8, 21), (16, 5)])
+def test_domain_list_forms_match_reference(size, n_coeffs):
+    """``coset_fft``, ``coset_ifft``, ``divide_by_vanishing`` (below,
+    at and above n coefficients) and ``lagrange_coeffs_at`` (off and on the
+    domain) against the reference's list oracles; ``DensePoly.constant``."""
+    d, rd = Radix2Domain(size), RefDomain(size)
+    coeffs = rand_ints(min(n_coeffs, size))
+    shift = 22
+    evals = d.coset_fft(coeffs, shift, CPU)
+    assert evals == rd.coset_fft(coeffs, shift)
+    assert d.coset_ifft(evals, shift, CPU) == rd.coset_ifft(evals, shift) == \
+        coeffs + [0] * (size - len(coeffs))
+    wide = rand_ints(n_coeffs)
+    wide[-1] = 0  # a trailing zero the quotient trims
+    assert d.divide_by_vanishing(wide, CPU) == rd.divide_by_vanishing(wide)
+    z = rand_ints(1)[0]
+    assert d.lagrange_coeffs_at(z, CPU) == rd.lagrange_coeffs_at(z)
+    on_domain = rd.elements()[3]
+    assert d.lagrange_coeffs_at(on_domain, CPU) == rd.lagrange_coeffs_at(on_domain)
+    assert DensePoly.constant(z, CPU).coeffs == RefPoly.constant(z).coeffs == [z]
+    assert DensePoly.constant(0, CPU).is_zero() and RefPoly.constant(0).is_zero()

@@ -30,6 +30,16 @@ from simpleworks_tpu_torch.utils.rng import test_rng
 CPU = torch.device("cpu")
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_disk_checkpoints():
+    """The disk checkpoints off: every setup and index of this file is built."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SWTPU_SRS_DISK_CACHE", "0")
+        mp.setenv("SWTPU_PK_DISK_CACHE", "0")
+        yield
+
+
 #: the message of the bench prove (bench.py bench_marlin_prove)
 MESSAGE = b"a message to sign"
 #: SRS(32, 32, 64): degree 189, enough for test_circuit (n = 32, m = 64)
