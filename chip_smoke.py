@@ -10,7 +10,8 @@ printed as one JSON line, any failure raising:
 
 1. the card's name and power limit (nvidia-smi);
 2. build: the CUDA sources of simpleworks_tpu_torch/csrc/, one nvcc each,
-   started together;
+   started together, and beside them the host runtime (csrc/host_native.cpp)
+   with g++;
 3. each field kernel against its plain PyTorch version on the card, on
    seed-made inputs with the edge values 0, 1 and p-1 mixed in, at the
    shapes the main path gives it, compared exactly (field arithmetic is
@@ -40,7 +41,12 @@ printed as one JSON line, any failure raising:
    group elements, and the seconds of each; then the accumulate kernel alone
    at the c = 13 group of the 2^20-point MSM (its real depth and 155,648
    lanes) against the plain version (exact), timed, with its registers
-   and spills;
+   and spills; then the native phase: the host runtime
+   (simpleworks_tpu_torch/native; its g++ seconds) against the card,
+   exactly: its NTT at 2^16 against the card's,
+   its batch-affine MSM against msm_device_mont at 2^16 points of that SRS,
+   its fixed base against the SRS's first 2^12 powers; both times, beside
+   the host's CPU model and thread count;
 8. the chain path: a square-add chain with one public input at n = 2^14
    through universal_setup -> index -> prove (twice) -> verify (True; False
    with one evaluation or the public input changed);
@@ -94,10 +100,19 @@ printed as one JSON line, any failure raising:
 14. the sharded path: the chain path's circuit proved unsharded and with the
     prover's transforms and commits sharded over the card repeated four
     times: equal bytes, both sharded routes called;
-15. the card against the CPU: a square-add chain of 5 proved on both, equal
-    proof bytes (the CPU path is the one the tests hold against the JAX
-    package);
-16. the kernels line: each kernel's launches on each path (the counts set to
+15. the small-prove phase: the reference's wedge circuit
+    (manual_constraints.synthesize(5, 5), SRS(100, 25, 300)) set up,
+    indexed and proved on the card (launching its kernels) and on the CPU
+    (the host native runtime): equal bytes, both warm proves timed;
+16. the multihost phase: two processes (this script with
+    --multihost-child) join a gloo job on tcp://localhost, each shards the
+    sharded path's prove over [cuda:0] * 2 (parallel/multihost.py: a
+    global list of 4 devices), and both proofs' bytes equal the sharded
+    path's single process's;
+17. the card against the CPU: a square-add chain of 5 proved on both
+    (the card's side shown there by its launches), equal proof bytes (the
+    CPU path is the one the tests hold against the JAX package);
+18. the kernels line: each kernel's launches on each path (the counts set to
     0 before the path and read after it; every kernel a path runs must have
     launched there), its largest error against the plain version, its time,
     the plain version's, and the least time the card could take (bound_ms).
@@ -120,6 +135,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -187,6 +203,20 @@ CHECKPOINT_CHILD_TIMEOUT_S = 300
 #: the serde's circuit, test_circuit(3, 3), at the smallest SRS that indexes
 #: it (n = 32, m = 64: degree 189; decompressing its 190 powers takes ~0.5 s)
 SERDE_SRS_SIZES = (32, 32, 64)
+#: the native phase: the host runtime's NTT and MSM against the card's at
+#: these sizes, and its fixed base against the KZG path's first powers
+NATIVE_NTT_LOG = 16
+NATIVE_MSM_LOG = 16
+NATIVE_FIXED_BASE_POWERS = 1 << 12
+#: the small-prove phase: the reference's wedge circuit
+#: (tests/test_wedge_proof.py), proved on the card and on the host
+SMALL_PROVE_SRS_SIZES = (100, 25, 300)
+SMALL_PROVE_CIRCUIT = (5, 5)
+#: the multihost phase: ranks on the card, each with the card this many times
+MULTIHOST_CHILD_FLAG = "--multihost-child"
+MULTIHOST_RANKS = 2
+MULTIHOST_LOCAL_DEVICES = 2
+MULTIHOST_TIMEOUT_S = 300
 #: DeviceField's lanes (each op also against host ints on the first ones),
 #: the fixed-base ladder's scalars and bits, and tree_reduce's points
 DEVICE_FIELD_LANES = 1 << 16
@@ -945,25 +975,34 @@ def run_msm(device, logs=MSM_LOGS, max_degree: int = MAX_DEGREE) -> dict:
 
 
 def run_pin(device, steps: int = PIN_STEPS, sizes=PIN_SRS_SIZES) -> dict:
-    """One small circuit proved on the card and on the CPU: equal bytes."""
+    """One small circuit proved on the card (shown there by its launches)
+    and on the CPU: equal bytes."""
     import torch
 
     from simpleworks_tpu_torch import marlin
     from simpleworks_tpu_torch.marlin.serialization import serialize_proof
+    from simpleworks_tpu_torch.ops import _build
 
     out = {}
     for dev in (device, torch.device("cpu")):
+        _build.reset_launches()
         cs = square_add_chain(steps)
         srs = marlin.universal_setup(*sizes, marlin.generate_rand(), device=dev)
         pk, vk = marlin.index(srs, cs)
+        if pk.device != dev:
+            raise AssertionError(f"the pin's key lives on {pk.device}, not {dev}")
         proof = marlin.prove(pk, cs)
         if not marlin.verify(vk, [PUBLIC_INPUT], proof):
             raise AssertionError(f"the pin's proof on {dev} does not verify")
         out[dev.type] = serialize_proof(proof)
+        if dev.type == "cuda":
+            launches = dict(_build.LAUNCHES)
     if out["cuda"] != out["cpu"]:
         raise AssertionError("proof bytes differ between the card and the CPU")
+    if not all(launches[k] for k in ("mont_mul", "ntt_reduce", "g1_fused_madd")):
+        raise AssertionError(f"the pin's card side did not run on the card: {launches}")
     return {"steps": steps, "srs_sizes": list(sizes), "proof_bytes": len(out["cuda"]),
-            "equal_bytes": True}
+            "equal_bytes": True, "card_launches": launches}
 
 
 @contextlib.contextmanager
@@ -1220,7 +1259,7 @@ def run_pipeline(device, full: bool = True) -> dict:
 
 
 def run_sharded(device, steps: int = CHAIN_STEPS, sizes=CHAIN_SRS_SIZES, shards: int = SHARDS,
-                thresholds=None) -> dict:
+                thresholds=None, keep: dict | None = None) -> dict:
     """The chain path's circuit proved unsharded, then with the prover's
     transforms and commits routed over ``[device] * shards``
     (ops.accel.set_prover_devices): equal bytes, and the sharded NTT and MSM
@@ -1261,6 +1300,8 @@ def run_sharded(device, steps: int = CHAIN_STEPS, sizes=CHAIN_SRS_SIZES, shards:
         raise AssertionError("the sharded prove's bytes differ from the unsharded prove's")
     if not marlin.verify(vk, [PUBLIC_INPUT], proofs["sharded"]):
         raise AssertionError("the sharded prove's proof does not verify")
+    if keep is not None:
+        keep["proof_bytes"] = unsharded
     return {"shards": shards, "n": vk.info.domain_h_size, "m": vk.info.domain_k_size,
             "thresholds": list(thresholds or saved), "sharded_calls": counts,
             "sharded_s": {key: sum(t for t, _ in rows) for key, rows in calls.items()},
@@ -1686,10 +1727,13 @@ def run_serde(device) -> dict:
     """serialize_proving_key -> deserialize_proving_key(device) -> prove, for
     test_circuit(3, 3) at SERDE_SRS_SIZES on the card: the bytes read back
     serialize to the same bytes, and the read-back key's proof equals the
-    original key's."""
+    original key's.  Both keys live on the card, and the key read back
+    proves there: FrVec.from_std_array onto the card, the card's
+    index_from_polys and its prove launch the field, NTT and MSM kernels."""
     from simpleworks_tpu_torch import marlin
     from simpleworks_tpu_torch.examples import test_circuit
     from simpleworks_tpu_torch.marlin import serialization as serde
+    from simpleworks_tpu_torch.ops import _build
 
     steps: dict[str, float] = {}
     cs = test_circuit.synthesize(3, 3)
@@ -1697,15 +1741,217 @@ def run_serde(device) -> dict:
     pk, vk = marlin.index(srs, cs)
     proof = serde.serialize_proof(marlin.prove(pk, cs))
     blob = timed_step(device, steps, "serialize_s", lambda: serde.serialize_proving_key(pk))
+    before = dict(_build.LAUNCHES)
     pk2 = timed_step(device, steps, "deserialize_s",
                      lambda: serde.deserialize_proving_key(blob, device=device))
     if pk2.srs.device != device or serde.serialize_proving_key(pk2) != blob:
         raise AssertionError("the proving key read back does not serialize to its bytes")
     proof2 = marlin.prove(pk2, cs)
+    launches = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
     if serde.serialize_proof(proof2) != proof or not marlin.verify(vk, [], proof2):
         raise AssertionError("the proving key read back proves other bytes")
+    if pk.device != device or pk2.device != device:
+        raise AssertionError(f"the serde's keys live on {pk.device} and {pk2.device}, not {device}")
+    if device.type == "cuda" and not all(launches[k] for k in ("mont_mul", "ntt_reduce",
+                                                                "g1_fused_madd")):
+        raise AssertionError(f"the key read back did not prove on the card: {launches}")
     return {"sizes": list(SERDE_SRS_SIZES), "powers": srs.num_powers, "bytes": len(blob),
-            "steps": steps, "equal": True}
+            "steps": steps, "equal": True, "key_device": str(pk2.device),
+            "read_back_launches": launches}
+
+
+def check_native(device, ntt_log: int = NATIVE_NTT_LOG, msm_log: int = NATIVE_MSM_LOG,
+                 fixed_base: int = NATIVE_FIXED_BASE_POWERS, max_degree: int = MAX_DEGREE) -> dict:
+    """The host native runtime (simpleworks_tpu_torch/native over
+    csrc/host_native.cpp): its g++ build, then its results held against the
+    card's on the same inputs, exactly, with both times: the NTT at
+    2^ntt_log (dvec.fft of a CPU tensor against a CUDA one), the batch-affine
+    MSM against msm_device_mont at 2^msm_log points of the KZG path's SRS
+    (its memo), and the fixed base against that SRS's first powers."""
+    import numpy as np
+    import torch
+
+    from simpleworks_tpu_torch import native
+    from simpleworks_tpu_torch.curves.bls12_377 import G1Point
+    from simpleworks_tpu_torch.fields import dvec
+    from simpleworks_tpu_torch.fields.bls12_377 import FR_MODULUS as P
+    from simpleworks_tpu_torch.fields.bls12_377 import Fr
+    from simpleworks_tpu_torch.kzg import kzg10
+    from simpleworks_tpu_torch.ops import _build
+    from simpleworks_tpu_torch.ops.msm_pippenger import msm_device_mont
+    from simpleworks_tpu_torch.utils.rng import test_rng
+
+    cpu = torch.device("cpu")
+    if not native.available():
+        raise AssertionError("the native runtime is unavailable (no C++ compiler on PATH)")
+    lib = native._lib()  # built beside the nvcc builds
+    out = {"gxx_seconds": _build.host_build_seconds, "library": Path(lib._name).name, "compiler": native.compiler(),
+           "host_cpu": _build.cpu_model(), "host_threads": native.threads(),
+           "cpu_count": os.cpu_count()}
+
+    n = 1 << ntt_log
+    coeffs = random_poly(n, 500, cpu)
+    host = dvec.fft(coeffs, n)
+    card = dvec.fft(coeffs.to(device), n)
+    if not torch.equal(host, card.cpu()):
+        raise AssertionError(f"the native NTT differs from the card's at 2^{ntt_log}")
+    on_card = coeffs.to(device)
+    out["ntt"] = {"n": n, "equal": True, "host_ms": time_ms(lambda: dvec.fft(coeffs, n), cpu, 3),
+                  "card_ms": time_ms(lambda: dvec.fft(on_card, n), device, 3)}
+
+    srs = kzg10.setup(max_degree, test_rng(), device=device)
+    m = 1 << msm_log
+    rows = native.planes_to_native(srs.powers_xy[:, :, :m])
+    scalars = random_poly(m, 501, cpu)
+    card_scalars = scalars.to(device)
+    if kzg10.host_msm(rows, scalars) != msm_device_mont(srs.powers_xy, card_scalars):
+        raise AssertionError(f"the native MSM differs from msm_device_mont at 2^{msm_log}")
+    out["msm"] = {"n": m, "equal": True,
+                  "host_ms": time_ms(lambda: kzg10.host_msm(rows, scalars), cpu, 3),
+                  "card_ms": time_ms(lambda: msm_device_mont(srs.powers_xy, card_scalars),
+                                     device, 3)}
+
+    tau = Fr.rand(test_rng()).value  # the KZG path's setup's first draw
+    tau_mont = native.ints_to_limbs64([tau * Fr.PARAMS.montgomery_r % P], 4)
+    std = native.fr_from_mont_arr(native.fr_powers_arr(tau_mont, fixed_base))
+    g = G1Point.generator()
+
+    def fixed():
+        return native.g1_normalize_arr(native.g1_fixed_base_arr(g, std))
+
+    if not np.array_equal(native.native_to_planes_u16(fixed()),
+                          srs.powers_xy[:, :, :fixed_base].cpu().numpy().astype(np.uint16)):
+        raise AssertionError("the native fixed base differs from the card setup's powers")
+    out["fixed_base"] = {"powers": fixed_base, "equal": True, "host_ms": time_ms(fixed, cpu, 3)}
+    return out
+
+
+def run_small_prove(device, sizes=SMALL_PROVE_SRS_SIZES, circuit=SMALL_PROVE_CIRCUIT) -> dict:
+    """The card against the host at a small size: the reference's wedge
+    circuit (manual_constraints.synthesize(5, 5)) set up, indexed and proved
+    on the card (its key there, its prove launching the field, NTT and MSM
+    kernels) and on the CPU (the host native runtime); equal proof bytes, and
+    each side's warm prove timed.  The port has no size routing: these two
+    times are what a size gate, with thresholds set from the card, would
+    weigh."""
+    import torch
+
+    from simpleworks_tpu_torch import marlin, native
+    from simpleworks_tpu_torch.examples import manual_constraints
+    from simpleworks_tpu_torch.marlin.serialization import serialize_proof
+    from simpleworks_tpu_torch.ops import _build
+
+    cpu = torch.device("cpu")
+    public = [circuit[0]]
+    steps: dict[str, float] = {}
+    blobs, launches = {}, {}
+    for dev in (device, cpu):
+        cs = manual_constraints.synthesize(*circuit)
+        srs = timed_step(dev, steps, f"{dev.type}_setup_s", lambda: marlin.universal_setup(
+            *sizes, marlin.generate_rand(), device=dev))
+        pk, vk = timed_step(dev, steps, f"{dev.type}_index_s", lambda: marlin.index(srs, cs))
+        if pk.device != dev:
+            raise AssertionError(f"the wedge circuit's key lives on {pk.device}, not {dev}")
+        marlin.prove(pk, cs)  # cold: the transforms' twiddles
+        before = dict(_build.LAUNCHES)
+        proof = timed_step(dev, steps, f"{dev.type}_prove_s", lambda: marlin.prove(pk, cs))
+        launches[dev.type] = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+        if not marlin.verify(vk, public, proof):
+            raise AssertionError(f"the wedge circuit's proof on {dev} does not verify")
+        blobs[dev.type] = serialize_proof(proof)
+    if blobs[device.type] != blobs["cpu"]:
+        raise AssertionError("the wedge circuit's proof bytes differ between the card and the CPU")
+    if any(launches["cpu"].values()):
+        raise AssertionError(f"the CPU's prove launched kernels: {launches['cpu']}")
+    if device.type == "cuda" and not all(launches[device.type][k] for k in (
+            "mont_mul", "ntt_reduce", "g1_fused_madd")):
+        raise AssertionError(f"the card's prove did not launch its kernels: {launches}")
+    return {"sizes": list(sizes), "n": vk.info.domain_h_size, "m": vk.info.domain_k_size,
+            "card_launches": launches[device.type], "equal_bytes": True, "steps": steps,
+            "host_threads": native.threads()}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_multihost(device, expected: bytes, ranks: int = MULTIHOST_RANKS,
+                  timeout_s: float = MULTIHOST_TIMEOUT_S) -> dict:
+    """parallel/multihost.py on the card: ``ranks`` processes (this script
+    with MULTIHOST_CHILD_FLAG) join a gloo job on tcp://localhost, each
+    shards the sharded path's prove over its card MULTIHOST_LOCAL_DEVICES
+    times (a global list of ranks x that), and each proof's bytes must equal
+    the single process's (``expected``, the sharded path's)."""
+    init = f"tcp://localhost:{free_port()}"
+    script = str(Path(__file__).resolve())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, script, MULTIHOST_CHILD_FLAG, init, str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=str(Path(script).parent)) for r in range(ranks)]
+    results = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=timeout_s)
+            lines = out.strip().splitlines()
+            last = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+            if proc.returncode != 0 or "multihost_child" not in last:
+                sys.stderr.write(out[-4000:] + err[-4000:])
+                raise AssertionError(f"a multihost rank exited {proc.returncode} without a result")
+            results.append(last["multihost_child"])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    digest = hashlib.sha256(expected).hexdigest()
+    if any(r["proof_sha256"] != digest for r in results):
+        raise AssertionError("a rank's proof bytes differ from the single process's")
+    return {"ranks": ranks, "local_devices": MULTIHOST_LOCAL_DEVICES, "backend": "gloo",
+            "wall_s": time.perf_counter() - t0, "equal_bytes": True, "children": results}
+
+
+def multihost_child(device, init: str, rank: int, ranks: int = MULTIHOST_RANKS,
+                    local: int = MULTIHOST_LOCAL_DEVICES, steps: int = CHAIN_STEPS,
+                    sizes=CHAIN_SRS_SIZES) -> dict:
+    """One rank of the multihost phase: the sharded path's circuit proved
+    with the prover's transforms and commits over the global device list."""
+    from simpleworks_tpu_torch import marlin
+    from simpleworks_tpu_torch.marlin.serialization import serialize_proof
+    from simpleworks_tpu_torch.ops import accel
+    from simpleworks_tpu_torch.parallel import msm_sharded, multihost, ntt_sharded
+
+    t0 = time.perf_counter()
+    multihost.initialize(init, world_size=ranks, rank=rank, timeout_s=MULTIHOST_TIMEOUT_S)
+    seconds: dict[str, float] = {"join_s": time.perf_counter() - t0}
+    try:
+        cs = square_add_chain(steps)
+        srs = timed_step(device, seconds, "setup_s", lambda: marlin.universal_setup(
+            *sizes, marlin.generate_rand(), device=device))
+        pk, vk = timed_step(device, seconds, "index_s", lambda: marlin.index(srs, cs))
+        targets = {"ntt": (ntt_sharded, "sharded_transform"), "msm": (msm_sharded, "sharded_msm"),
+                   "msm_native": (msm_sharded, "sharded_msm_native")}  # the latter: CPU keys
+        accel.set_prover_devices([device] * local)
+        try:
+            devices = len(accel.prover_devices())
+            with calls_timed(device, targets) as calls:
+                proof = timed_step(device, seconds, "prove_s", lambda: marlin.prove(pk, cs))
+        finally:
+            accel.set_prover_devices(None)
+        counts = {key: len(rows) for key, rows in calls.items()}
+        counts["msm"] += counts.pop("msm_native")
+        if not all(counts.values()) or devices != ranks * local:
+            raise AssertionError(f"rank {rank}: sharded calls {counts} over {devices} devices")
+        if not marlin.verify(vk, [PUBLIC_INPUT], proof):
+            raise AssertionError(f"rank {rank}'s proof does not verify")
+        blob = serialize_proof(proof)
+    finally:
+        multihost.shutdown()
+    return {"rank": rank, "global_devices": devices, "sharded_calls": counts, "steps": seconds,
+            "proof_sha256": hashlib.sha256(blob).hexdigest()}
 
 
 def smi(query: str) -> str:
@@ -1717,7 +1963,8 @@ def smi(query: str) -> str:
 def main(argv: list[str]) -> int:
     import torch
 
-    if argv not in ([], ["--profile"], [CHECKPOINT_CHILD_FLAG]):
+    multihost_rank = argv[:1] == [MULTIHOST_CHILD_FLAG] and len(argv) == 3
+    if argv not in ([], ["--profile"], [CHECKPOINT_CHILD_FLAG]) and not multihost_rank:
         print("usage: chip_smoke.py [--profile]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1737,6 +1984,9 @@ def main(argv: list[str]) -> int:
         _build.build_all()
         emit({"checkpoint_child": checkpoint_child(device, reference)})
         return 0
+    if multihost_rank:
+        emit({"multihost_child": multihost_child(device, argv[1], int(argv[2]))})
+        return 0
     # the disk checkpoints stay off on every path but the checkpoint path's,
     # so that no path times a load as its setup or index
     os.environ.update(SWTPU_SRS_DISK_CACHE="0", SWTPU_PK_DISK_CACHE="0")
@@ -1745,11 +1995,19 @@ def main(argv: list[str]) -> int:
     print(smi("name,power.limit"), flush=True)
     clock_mhz = float(smi("clocks.max.sm").split()[0])
 
+    from simpleworks_tpu_torch import native
+
     t0 = time.perf_counter()
+    # the host runtime's g++ build runs beside the nvcc builds
+    host_build = threading.Thread(target=native._lib)
+    host_build.start()
     libraries = _build.build_all()
     for stem in _build.SIGNATURES:
         _build.library(stem)
-    emit({"build": {"seconds": time.perf_counter() - t0, "nvcc_seconds": _build.build_seconds,
+    host_build.join()
+    emit({"build": {"seconds": time.perf_counter() - t0,
+                    "nvcc_seconds": _build.build_seconds - _build.host_build_seconds,
+                    "gxx_seconds": _build.host_build_seconds,
                     "libraries": [lib.name for lib in libraries]}})
 
     checks = check_kernels(device)
@@ -1826,6 +2084,8 @@ def main(argv: list[str]) -> int:
     checks["g1_bucket_combine"] = check_combine(device, accumulated)
     del accumulated
     emit({"combine_checks": checks["g1_bucket_combine"]})
+    # the host runtime against the card, on the KZG path's SRS (its memo)
+    emit({"native": check_native(device)})
     kzg10._SRS_MEMO.clear()  # the Marlin path's setup is timed, not read from the memo
     paths["chain"] = drive_counting_pow("chain", prover, lambda: run_chain(device))
     emit({"chain": paths["chain"]})
@@ -1869,8 +2129,12 @@ def main(argv: list[str]) -> int:
     paths["pipeline"] = drive_counting_pow("pipeline", prover, lambda: run_pipeline(device))
     emit({"pipeline": paths["pipeline"]})
     kzg10._SRS_MEMO.clear()
-    paths["sharded"] = drive_counting_pow("sharded", prover, lambda: run_sharded(device))
+    sharded_kept: dict = {}
+    paths["sharded"] = drive_counting_pow("sharded", prover,
+                                          lambda: run_sharded(device, keep=sharded_kept))
     emit({"sharded": paths["sharded"]})
+    emit({"small_prove": run_small_prove(device)})
+    emit({"multihost": run_multihost(device, sharded_kept["proof_bytes"])})
     emit({"pin": run_pin(device)})
     emit({"elapsed": {"seconds": time.perf_counter() - script_t0}})
 

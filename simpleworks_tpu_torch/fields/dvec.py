@@ -15,6 +15,12 @@ modular adds.  The transforms (``fft``/``ifft``) run the NTT of
 :mod:`simpleworks_tpu_torch.ops.ntt` on the vector's device, or the sharded
 4-step NTT over the prover's devices when :mod:`..ops.accel` routes them
 there.
+
+A CPU tensor takes the host native runtime (:mod:`..native`) when it is
+available: the elementwise ops, the inverse, the powers, division by
+(X − z), evaluation and the transforms each become one native call over the
+tensor's words (equal values; ``SWTPU_NATIVE=0`` keeps the plain versions).
+A CUDA tensor never takes the native runtime.
 """
 
 from __future__ import annotations
@@ -24,12 +30,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import native
 from ..errors import ensure
 from ..ops import accel
 from ..ops.mont_mul import FR, mod_add, mod_sub, mont_mul, mont_pow
 from ..ops.ntt import get_ntt
 from ..device import resolve
-from .bls12_377 import FR_MODULUS
+from .bls12_377 import FR_MODULUS, fr_root_of_unity
 from .device import from_mont, limbs_to_ints, mont_scalar, to_mont
 
 P = FR_MODULUS
@@ -39,25 +46,55 @@ L = FR.n_limbs  # 16-bit limbs per element
 # ------------------------------------------------------------ elementwise ----
 
 
+def host_native(a: torch.Tensor) -> bool:
+    """Whether an op on ``a`` takes the native runtime (a CPU tensor, the
+    runtime available)."""
+    return a.device.type == "cpu" and native.available()
+
+
+def _words(a: torch.Tensor):
+    return native.limbs_to_words(a)
+
+
+def _limbs(words) -> torch.Tensor:
+    return native.words_to_limbs(words)
+
+
+def _binop(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.shape != b.shape:
+        raise ValueError(f"shape mismatch: {tuple(a.shape)} vs {tuple(b.shape)}")
+    return _limbs(native.fr_binop_arr(op, _words(a), _words(b)))
+
+
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if host_native(a):
+        return _binop("mul", a, b)
     return mont_mul(a, b, FR)
 
 
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if host_native(a):
+        return _binop("add", a, b)
     return mod_add(a, b, FR)
 
 
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if host_native(a):
+        return _binop("sub", a, b)
     return mod_sub(a, b, FR)
 
 
 def scale(a: torch.Tensor, scalar_mont: torch.Tensor) -> torch.Tensor:
     """a · s with s a [16, 1] Montgomery limb column."""
+    if host_native(a):
+        return _limbs(native.fr_scale_arr(_words(a), _words(scalar_mont)))
     return mul(a, scalar_mont.expand_as(a))
 
 
 def rsub_scalar(a: torch.Tensor, scalar_mont: torch.Tensor) -> torch.Tensor:
     """s − a elementwise."""
+    if host_native(a):
+        return _limbs(native.fr_scalar_sub_arr(_words(scalar_mont), _words(a)))
     return sub(scalar_mont.expand_as(a), a)
 
 
@@ -66,7 +103,10 @@ def pow_const(a: torch.Tensor, exponent: int) -> torch.Tensor:
 
 
 def inv(a: torch.Tensor) -> torch.Tensor:
-    """Elementwise inverse via Fermat (x^(p−2); zeros stay zero)."""
+    """Elementwise inverse via Fermat (x^(p−2); zeros stay zero); on the
+    host one batch inversion."""
+    if host_native(a):
+        return _limbs(native.fr_inv_arr(_words(a)))
     return pow_const(a, P - 2)
 
 
@@ -168,6 +208,9 @@ def divide_by_linear(a: torch.Tensor, z: int):
     z = z % P
     if z == 0:
         return a[:, 1:], a[:, :1]
+    if host_native(a):
+        quot, rem = native.fr_div_linear_arr(_words(a), _words(mont_scalar(z, FR, a.device)))
+        return _limbs(quot), _limbs(rem)
     s = suffix_sum(mul(a, powers_vec(z, n, a.device)))
     z_inv = pow(z, P - 2, P)
     inv_pows = scale(powers_vec(z_inv, n - 1, a.device), mont_scalar(z_inv, FR, a.device))
@@ -179,12 +222,16 @@ def evaluate(a: torch.Tensor, z: int) -> torch.Tensor:
     n = a.shape[1]
     if n == 0:
         return zeros(1, a.device)
+    if host_native(a):
+        return _limbs(native.fr_horner_arr(_words(a), _words(mont_scalar(z % P, FR, a.device))))
     return sum_reduce(mul(a, powers_vec(z, n, a.device)))
 
 
 def powers_vec(base: int, n: int, device=None) -> torch.Tensor:
     """[16, n] Montgomery tensor [1, z, z², …] by log-doubling (~log n muls)."""
     device = resolve(device)
+    if device.type == "cpu" and native.available():
+        return _limbs(native.fr_powers_arr(_words(mont_scalar(base % P, FR, device)), n))
     out = mont_scalar(1, FR, device)
     width = 1
     while width < n:
@@ -221,6 +268,8 @@ def fft(a: torch.Tensor, n: int) -> torch.Tensor:
         from ..parallel import ntt_sharded
 
         return ntt_sharded.sharded_transform(devices, pad_to(a, n))
+    if host_native(a):
+        return _limbs(native.fr_ntt_arr(_words(pad_to(a, n)), fr_root_of_unity(n)))
     return get_ntt(n, a.device).fft_mont(pad_to(a, n))
 
 
@@ -232,6 +281,9 @@ def ifft(a: torch.Tensor, n: int) -> torch.Tensor:
         from ..parallel import ntt_sharded
 
         return ntt_sharded.sharded_transform(devices, a, inverse=True)
+    if host_native(a):
+        omega_inv = pow(fr_root_of_unity(n), P - 2, P)
+        return _limbs(native.fr_ntt_arr(_words(a), omega_inv, scale=pow(n, P - 2, P)))
     return get_ntt(n, a.device).ifft_mont(a)
 
 

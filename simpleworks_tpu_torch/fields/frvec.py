@@ -2,10 +2,12 @@
 
 Port of ``simpleworks_tpu/fields/frvec.py``.  The reference's FrVec is a host
 numpy Montgomery array whose batch ops run in its native C++ runtime; the
-port has no such runtime, so its FrVec is a thin class over a ``[16, N]``
-``torch.int32`` Montgomery limb tensor (the :mod:`.dvec` layout) on an
-explicit device, and every op is a :mod:`.dvec` call there: the index, the
-prover and the domain helpers run on the card with no second host plane.
+port's FrVec is a thin class over a ``[16, N]`` ``torch.int32`` Montgomery
+limb tensor (the :mod:`.dvec` layout) on an explicit device, and every op is
+a :mod:`.dvec` call there: the index, the prover and the domain helpers run
+on the card with no second host plane.  On a CPU tensor those calls, and the
+fused multiply-add and the sparse accumulate here, take the host native
+runtime (:mod:`..native`) when it is available, as the reference's do.
 
 :class:`SpmvPlan` is the sparse accumulate ``out[rows[i]] += c_i·x[cols[i]]``
 of the AHP (z_M = M·z and the t-evaluations).  Several terms land on one
@@ -21,6 +23,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve
 from . import dvec
 from .bls12_377 import FR_MODULUS
@@ -128,7 +131,12 @@ class FrVec:
 
     def mul_add(self, other: "FrVec", addend: "FrVec") -> "FrVec":
         """self·other + addend."""
+        self._same(other)
         self._same(addend)
+        if dvec.host_native(self.t):
+            words = native.limbs_to_words
+            return FrVec(native.words_to_limbs(native.fr_mul_add_arr(
+                words(self.t), words(other.t), words(addend.t))))
         return self * other + addend
 
     def scale(self, s: int) -> "FrVec":
@@ -219,6 +227,9 @@ class SpmvPlan:
         dev = coeffs.device
         self.out_len = out_len
         self.nnz = int(rows.size)
+        # the native runtime's operands (a CPU plan), made at the first apply
+        self._host = (rows, cols, coeffs.t) if dev.type == "cpu" else None
+        self._host_words = None
         order = np.argsort(rows, kind="stable")
         r_sorted = rows[order]
         self.steps: list[tuple[int, torch.Tensor]] = []
@@ -241,6 +252,19 @@ class SpmvPlan:
     def apply(self, x: FrVec) -> FrVec:
         return FrVec(self.apply_batch(x.t, 1))
 
+    def _apply_native(self, x: torch.Tensor, batch: int) -> torch.Tensor:
+        """The native sparse accumulate, once a vector (a CPU plan)."""
+        if self._host_words is None:
+            rows, cols, coeffs = self._host
+            self._host_words = (rows.astype(np.uint32), cols.astype(np.uint32),
+                                native.limbs_to_words(coeffs))
+        rows, cols, coeffs = self._host_words
+        words = native.limbs_to_words(x)
+        in_len = x.shape[1] // batch
+        out = [native.fr_spmv_arr(rows, cols, coeffs, words[b * in_len : (b + 1) * in_len],
+                                  self.out_len) for b in range(batch)]
+        return native.words_to_limbs(np.concatenate(out) if out else np.zeros((0, 4), "<u8"))
+
     def apply_batch(self, x: torch.Tensor, batch: int) -> torch.Tensor:
         """The plan on ``batch`` vectors laid end to end along the lane axis
         (x [16, batch·in_len] -> [16, batch·out_len]), in one pass: the
@@ -248,6 +272,8 @@ class SpmvPlan:
         the terms of vector b stay in vector b's runs."""
         if x.shape[1] % batch:
             raise ValueError(f"{x.shape[1]} lanes are not {batch} vectors of one length")
+        if self._host is not None and dvec.host_native(x):
+            return self._apply_native(x, batch)
         out = dvec.zeros(batch * self.out_len, x.device)
         if self.nnz == 0:
             return out

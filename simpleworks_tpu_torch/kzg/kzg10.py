@@ -6,9 +6,12 @@ package's device prover uses (``marlin/device_prover.py`` ``_commit_dev``
 and ``_batch_open_dev``):
 
 * setup: powers-of-tau SRS over G1, built on the device and normalised there
-  to affine X/Y planes ``[2, 24, N]``; H, βH in G2 and the γ powers on the host
+  to affine X/Y planes ``[2, 24, N]`` (on the CPU built by the native
+  runtime's fixed base as normalised ``[N, 18]`` rows, which the SRS keeps
+  beside its planes); H, βH in G2 and the γ powers on the host
 * commit: device MSM of a ``[16, n]`` Montgomery coefficient tensor against
-  the powers; a degree bound d adds a shifted commitment (the same
+  the powers (for a CPU tensor the native runtime's batch-affine MSM over
+  the host rows); a degree bound d adds a shifted commitment (the same
   coefficients against powers D−d onwards)
 * batch open at z: one witness W = [Σ ξ^i (p_i(X)−p_i(z))/(X−z)]·G, combined
   and divided on the device; degree-bounded polys add their shifted quotient
@@ -49,6 +52,7 @@ from ..errors import ensure
 from ..fields import dvec
 from ..fields.bls12_377 import FR_MODULUS, Fr
 from ..fields.device import FR, mont_scalar
+from .. import native
 from ..ops import accel, g1_limb
 from ..ops.msm_pippenger import msm_device_mont
 from ..ops.srs_device import fixed_base_powers_affine
@@ -66,13 +70,17 @@ NUM_GAMMA_POWERS = HIDING_POLY_DEGREE + 1
 class UniversalSRS:
     """Powers of tau [G, τG, τ²G, ...] as device-resident affine X/Y planes
     ``powers_xy`` [2, 24, N] (Z = 1, the identity as x = y = 0), plus H, τH
-    and the γ powers [γG, τγG, ...] on the host."""
+    and the γ powers [γG, τγG, ...] on the host.  An SRS on the CPU also
+    holds the powers as the native runtime's normalised [N, 18] rows
+    (:meth:`host_powers`), which its MSMs read."""
 
     def __init__(self, powers_xy: torch.Tensor, h: G2Point, beta_h: G2Point,
-                 powers_of_gamma_g: list[G1Point]):
+                 powers_of_gamma_g: list[G1Point], *, host_rows: Optional[np.ndarray] = None):
         if powers_xy.dim() != 3 or powers_xy.shape[:2] != (2, 24):
             raise ValueError(f"expected [2, 24, N] affine planes, got {tuple(powers_xy.shape)}")
         self.powers_xy = powers_xy
+        self._host_rows = host_rows
+        self._host_rows_lock = threading.Lock()
         self.h = h
         self.beta_h = beta_h
         self.powers_of_gamma_g = powers_of_gamma_g
@@ -106,6 +114,16 @@ class UniversalSRS:
     def device_powers(self) -> torch.Tensor:
         """The [2, 24, N] affine X/Y planes the device MSM reads."""
         return self.powers_xy
+
+    def host_powers(self) -> np.ndarray:
+        """The normalised [N, 18] u64 rows the native MSM reads (an SRS on
+        the CPU only), made from the planes at the first call when the setup
+        did not leave them."""
+        ensure(self.device.type == "cpu", "host rows are kept for an SRS on the CPU only")
+        with self._host_rows_lock:  # the pipeline's threads share one SRS
+            if self._host_rows is None:
+                self._host_rows = native.planes_to_native(self.powers_xy)
+        return self._host_rows
 
     def power(self, i: int) -> G1Point:
         """τ^i·G, read back from the device."""
@@ -254,6 +272,13 @@ def _setup_uncached(max_degree: int, tau: int, gamma: int, device) -> UniversalS
     beta_h = h.scalar_mul(tau)
     table = _generator_table()
     gamma_powers = [table.mul(gamma * pow(tau, i, P) % P) for i in range(NUM_GAMMA_POWERS)]
+    if device.type == "cpu" and native.available():
+        # the native fixed base over τ^0..τ^D, normalised to Z = 1
+        tau_mont = native.ints_to_limbs64([tau * Fr.PARAMS.montgomery_r % P], 4)
+        scalars = native.fr_from_mont_arr(native.fr_powers_arr(tau_mont, max_degree + 1))
+        rows = native.g1_normalize_arr(native.g1_fixed_base_arr(g, scalars))
+        return UniversalSRS(g1_limb.native_points_to_limb_major(rows, device), h, beta_h,
+                            gamma_powers, host_rows=rows)
     # τ^0..τ^D built on the device (log-doubling), then out of Montgomery form
     tau_powers = dvec.to_standard(dvec.powers_vec(tau, max_degree + 1, device))
     powers_xy = fixed_base_powers_affine(g, tau_powers)
@@ -340,20 +365,25 @@ def _gamma_msm(srs: UniversalSRS, coeffs: list[int]) -> G1Point:
 
 # -------------------------------------------------------- commit and open --
 
-#: CPU tensors at most this wide take the host Pippenger over the SRS points
-#: read back: on the CPU the tensor MSM runs through the plain field versions
-#: and costs many times the host Pippenger at these widths.  CUDA tensors
-#: always take the device MSM.
-HOST_MSM_MAX_WIDTH = 1024
+def host_msm(rows: np.ndarray, coeffs: torch.Tensor) -> G1Point:
+    """The native batch-affine MSM of the [16, n] Montgomery coefficients (a
+    CPU tensor) against the first n normalised [N, 18] ``rows``."""
+    n = coeffs.shape[1]
+    return native.g1_msm_affine_arr(rows[:n], native.std_words(coeffs))
 
 
 def device_msm(points_xy: torch.Tensor, coeffs: torch.Tensor, offset: int = 0) -> G1Point:
     """MSM of the [16, n] Montgomery coefficients against points
     offset..offset+n of the [2, 24, N] affine planes, on their device: the
-    device MSM, or the host Pippenger for a CPU tensor of at most
-    ``HOST_MSM_MAX_WIDTH`` coefficients."""
+    device MSM on the card; for a CPU tensor the native MSM, or without the
+    native runtime the pure-Python Pippenger (the reference's pure route).
+    ``msm_device_mont`` on a CPU tensor, the kernels' oracle, is not a
+    route."""
     n = coeffs.shape[1]
-    if coeffs.device.type == "cpu" and n <= HOST_MSM_MAX_WIDTH:
+    if coeffs.device.type == "cpu":
+        if native.available():
+            return host_msm(native.planes_to_native(points_xy[:, :, offset : offset + n]),
+                            coeffs)
         points = g1_limb.points_from_affine_planes(points_xy[:, :, offset : offset + n])
         return msm(points, dvec.to_ints(coeffs))
     return msm_device_mont(points_xy, coeffs, offset=offset)
@@ -362,15 +392,22 @@ def device_msm(points_xy: torch.Tensor, coeffs: torch.Tensor, offset: int = 0) -
 def _srs_msm(srs: UniversalSRS, coeffs: torch.Tensor, offset: int = 0) -> G1Point:
     """MSM of the [16, n] Montgomery coefficients against SRS powers
     offset..offset+n: sharded over the prover's devices when they are set
-    and n reaches the threshold (``ops.accel``), else :func:`device_msm`."""
-    if accel.use_sharded_msm(coeffs.shape[1]):
+    and n reaches the threshold (``ops.accel``), else :func:`device_msm`;
+    on the CPU with the native runtime, over the SRS's host rows."""
+    n = coeffs.shape[1]
+    host = coeffs.device.type == "cpu" and native.available()
+    if accel.use_sharded_msm(n):
         devices = accel.prover_devices()
         if devices is not None:
             from ..parallel import msm_sharded
 
+            if host:
+                return msm_sharded.sharded_msm_native(devices, srs.host_powers(),
+                                                      native.std_words(coeffs), offset=offset)
             return msm_sharded.sharded_msm(devices, srs.powers_xy, coeffs, offset=offset)
+    if host:
+        return host_msm(srs.host_powers()[offset : offset + n], coeffs)
     return device_msm(srs.powers_xy, coeffs, offset=offset)
-
 
 
 def true_width(poly: torch.Tensor) -> int:
@@ -443,10 +480,19 @@ def batch_open(
 
     dev = srs.device
     max_len = max(int(p.shape[1]) for _, p in base_terms)
-    acc = dvec.zeros(max_len, dev)
-    for w, poly in base_terms:
-        n = poly.shape[1]
-        acc[:, :n] = dvec.add(acc[:, :n], dvec.scale(poly, mont_scalar(w, FR, dev)))
+    if dev.type == "cpu" and native.available():
+        # acc += Mont(c)·Mont(w)·R⁻¹, one axpy a polynomial on the host rows
+        acc_words = np.zeros((max_len, 4), dtype="<u8")
+        for w, poly in base_terms:
+            if poly.shape[1]:
+                native.fr_axpy_arr(acc_words, native.limbs_to_words(poly),
+                                   native.limbs_to_words(mont_scalar(w, FR, dev)))
+        acc = native.words_to_limbs(acc_words)
+    else:
+        acc = dvec.zeros(max_len, dev)
+        for w, poly in base_terms:
+            n = poly.shape[1]
+            acc[:, :n] = dvec.add(acc[:, :n], dvec.scale(poly, mont_scalar(w, FR, dev)))
     combined_blind: list[int] = []
     for w, blind in blind_terms:
         combined_blind = _poly_add_scaled(combined_blind, blind, w)

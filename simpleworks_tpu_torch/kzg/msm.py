@@ -1,15 +1,21 @@
-"""Multi-scalar multiplication over BLS12-377 G1 on the host (pure Python).
+"""Multi-scalar multiplication over BLS12-377 G1 on the host.
 
-Port of the pure-Python route of ``simpleworks_tpu/kzg/msm.py``: the oracle
-for the device MSM, the γ-power MSMs of hiding commitments, and the
-fixed-base table that builds the γ powers.  The device MSM is
-:mod:`simpleworks_tpu_torch.ops.msm_pippenger`.
+Port of ``simpleworks_tpu/kzg/msm.py``: the oracle for the device MSM, the
+γ-power MSMs of hiding commitments, and the fixed-base table that builds the
+γ powers.  From 32 non-zero pairs :func:`msm` takes the native runtime's
+Pippenger (:mod:`..native`) when it is available, as the reference does;
+below that, or with ``SWTPU_NATIVE=0``, the pure-Python Pippenger.  The
+device MSM is :mod:`simpleworks_tpu_torch.ops.msm_pippenger`.
 """
 
 from __future__ import annotations
 
+from .. import native
 from ..curves.bls12_377 import G1Point
 from ..fields.bls12_377 import FR_MODULUS
+
+#: from this many non-zero pairs the native Pippenger takes the MSM
+NATIVE_MIN_PAIRS = 32
 
 
 def msm(points: list[G1Point], scalars: list[int]) -> G1Point:
@@ -19,6 +25,9 @@ def msm(points: list[G1Point], scalars: list[int]) -> G1Point:
     pairs = [(p, int(s) % FR_MODULUS) for p, s in zip(points, scalars) if int(s) % FR_MODULUS]
     if not pairs:
         return G1Point.identity()
+    if len(pairs) >= NATIVE_MIN_PAIRS and native.available():
+        pt = native.g1_msm([p for p, _ in pairs], [s for _, s in pairs])
+        return G1Point.identity() if pt.is_identity() else pt
     n = len(pairs)
     bits = FR_MODULUS.bit_length()
     # window bits: the fewest adds, ⌈bits/c⌉ windows of n bucket adds and

@@ -12,10 +12,12 @@ Port of ``simpleworks_tpu/marlin/__init__.py`` (reference
 The proof is the 3-round Marlin AHP (:mod:`.ahp`, :mod:`.prover`) over KZG10
 with degree bounds (:mod:`simpleworks_tpu_torch.kzg.kzg10`), Fiat-Shamir via
 Blake2s + ChaCha20.  Index and prove run on the SRS's device (the card
-unless the setup named another); verify is host arithmetic and pairings.
-``ops/accel.py`` routes the prover's wide transforms and MSMs over several
-devices when they are set; the reference's size routing (small work to the
-host) is not ported.
+unless the setup named another; on the CPU the host native runtime,
+:mod:`simpleworks_tpu_torch.native`, does the field, NTT and MSM work);
+verify is host arithmetic and pairings.  ``ops/accel.py`` routes the
+prover's wide transforms and MSMs over several devices when they are set;
+the reference's size routing (small work to the host) is not ported: a key
+stays on the device its caller resolved.
 
 ``index`` is memoized in the process and checkpointed on disk: a key indexed
 once loads in a second process with no index work (the reference ledger's
@@ -106,6 +108,12 @@ class IndexProverKey:
     vk: IndexVerifierKey
     #: the prover's per-key device cache (:class:`.prover.DeviceIndex`)
     device_index: object = field(default=None, repr=False, compare=False)
+
+    @property
+    def device(self) -> torch.device:
+        """Where this key's polynomials live, and its proves run (its SRS's
+        device)."""
+        return self.index.matrices[0].row_poly.vec.device
 
 
 @dataclass

@@ -1,4 +1,5 @@
-"""Builds the package's CUDA sources into shared libraries and loads them.
+"""Builds the package's CUDA sources and its host C++ runtime into shared
+libraries and loads them.
 
 Route: ``nvcc`` into a shared object with a plain C interface, bound with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  Each source under
@@ -7,6 +8,12 @@ Route: ``nvcc`` into a shared object with a plain C interface, bound with
 source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source or header never loads a stale build.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
+
+The host runtime (``csrc/host_native.cpp``, :mod:`..native`) is built the
+same way with the C++ compiler (:func:`host_library`); ``-march=native``
+bakes the host's CPU into it, so its name also hashes the CPU's model and
+feature flags, and a file lock lets one process of several build it while
+the others wait.
 
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
 (:func:`count_launch`) where it launches its kernel, and nowhere else.
@@ -20,6 +27,7 @@ same file), and a launch count is one increment under a lock.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -34,6 +42,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
+
+#: the host runtime's flags (the JAX package's Makefile's)
+HOST_CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-march=native", "-pthread"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -69,6 +80,8 @@ _launch_lock = threading.Lock()
 #: seconds of wall clock the builds took in this process (0.0 while only
 #: cached builds were loaded)
 build_seconds = 0.0
+#: of which the host runtime's C++ build
+host_build_seconds = 0.0
 
 
 def reset_launches() -> None:
@@ -145,5 +158,95 @@ def library(stem: str = "field_kernels") -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
+            _libs[stem] = lib
+    return lib
+
+
+_CPU_KEYS = ("model name", "vendor_id", "cpu family", "model", "flags", "Features", "CPU part")
+
+
+def _cpuinfo() -> dict:
+    """The first value of each of ``_CPU_KEYS`` in ``/proc/cpuinfo``."""
+    try:
+        lines = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        return {}
+    found = {}
+    for line in lines:
+        key, _, value = line.partition(":")
+        key = key.strip()
+        if key in _CPU_KEYS and key not in found:
+            found[key] = value.strip()
+    return found
+
+
+def cpu_id() -> str:
+    """The host CPU's model and feature flags (what ``-march=native``
+    compiles for), from ``/proc/cpuinfo``."""
+    info = _cpuinfo()
+    return " | ".join([os.uname().machine] + [info.get(k, "") for k in _CPU_KEYS])
+
+
+def cpu_model() -> str:
+    """The host CPU's model name (printed beside host timings); its vendor,
+    family and model numbers where the name reads ``unknown``."""
+    info = _cpuinfo()
+    name = info.get("model name", "")
+    if name and name != "unknown":
+        return name
+    vendor, family, model = (info.get(k, "") for k in ("vendor_id", "cpu family", "model"))
+    if vendor or family or model:
+        return f"{vendor} family {family} model {model}"
+    return os.uname().machine
+
+
+def _host_library_path(source: Path) -> Path:
+    text = source.read_bytes() + " ".join(HOST_CXX_FLAGS).encode() + cpu_id().encode()
+    return BUILD_DIR / f"lib{source.stem}_{hashlib.sha256(text).hexdigest()[:16]}.so"
+
+
+def build_host(source: Path, compiler: str) -> Path:
+    """Compiles the C++ ``source`` with ``compiler`` and the host flags unless
+    a build of its exact text, for this CPU, exists.  Processes that start
+    together wait on one file lock while the first builds; a failed build
+    raises with the compiler's output."""
+    global build_seconds, host_build_seconds
+    out = _host_library_path(source)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f".{source.stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():  # another process built it while this one waited
+            return out
+        t0 = time.perf_counter()
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        proc = subprocess.run([compiler, *HOST_CXX_FLAGS, "-o", str(tmp), str(source)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        seconds = time.perf_counter() - t0
+        build_seconds += seconds
+        host_build_seconds += seconds
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{compiler} failed on {source.name}:\n{proc.stdout}")
+        os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
+    return out
+
+
+def host_library(stem: str, compiler: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded host library of ``csrc/<stem>.cpp`` (built on first call,
+    once however many threads ask for it), its functions given
+    ``signatures`` ({C symbol: argtypes}; they return nothing)."""
+    lib = _libs.get(stem)
+    if lib is not None:
+        return lib
+    with _libs_lock:
+        lib = _libs.get(stem)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_host(CSRC / f"{stem}.cpp", compiler)))
+            for name, args in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = None
             _libs[stem] = lib
     return lib

@@ -120,6 +120,46 @@ def build_schedule_meta(digits: np.ndarray, c: int, lanes: int):
     return _meta_from_stats(per_window, lanes)
 
 
+def window_counts(digits: np.ndarray, b: int) -> np.ndarray:
+    """[W, N] digits -> [W, b] bucket counts (a host bincount a window)."""
+    out = np.zeros((digits.shape[0], b), dtype=np.int64)
+    for w in range(digits.shape[0]):
+        out[w] = np.bincount(digits[w], minlength=b)
+    return out
+
+
+def build_schedule(scalars_std: np.ndarray, c: int, offset: int = 0, lanes: int = 1024):
+    """The host-grid oracle of the device schedule: [N, 4] standard-form
+    scalars -> [(window_ids, segs, b_g, idx [D, g·S·B] int64, valid [D,
+    g·S·B] bool)], one entry a group, by the grouping policy of
+    :func:`build_schedule_meta` and the layout of
+    :func:`device_grid_from_digits` (column w·S·B + s·B + d, row r lists the
+    point of rank s·D + r among those whose window-w digit is d, in index
+    order; digit 0 owns no entries), built with numpy only."""
+    digits = window_digits(scalars_std, c)
+    out = []
+    for window_ids, segs, b_g, depth in build_schedule_meta(digits, c, lanes):
+        g = len(window_ids)
+        idx = np.zeros((g, depth, segs, b_g), dtype=np.int64)
+        valid = np.zeros((g, depth, segs, b_g), dtype=bool)
+        for slot, w in enumerate(window_ids):
+            dw = digits[w]
+            order = np.argsort(dw, kind="stable")
+            sd = dw[order]
+            starts = np.concatenate([[0], np.cumsum(np.bincount(sd, minlength=b_g))[:-1]])
+            ranks = np.arange(dw.shape[0]) - starts[sd]
+            keep = sd > 0
+            seg, row = np.divmod(ranks[keep], depth)
+            idx[slot, row, seg, sd[keep]] = order[keep] + offset
+            valid[slot, row, seg, sd[keep]] = True
+        # an invalid lane holds 0 here and a clamped index in the device grid;
+        # the accumulate reads neither
+        out.append((window_ids, segs, b_g,
+                    idx.transpose(1, 0, 2, 3).reshape(depth, g * segs * b_g),
+                    valid.transpose(1, 0, 2, 3).reshape(depth, g * segs * b_g)))
+    return out
+
+
 def device_grid_from_digits(digits_g: torch.Tensor, depth: int, segs: int, b: int,
                             offset: int):
     """[g, N] int64 digits -> (idx [D, g·S·B] int64, valid [D, g·S·B] bool):

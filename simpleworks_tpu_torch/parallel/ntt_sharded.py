@@ -19,11 +19,17 @@ and C[k1, k2] comes back to the input's device in natural order,
 x̂[k1 + n1·k2] = C[k1, k2].  The result equals the unsharded transform's
 value for value.
 
+In a multi-process job (:mod:`.multihost`) the device list is global and a
+None entry is another rank's shard: each rank runs steps 1–2 and 4 for its
+own shards only, and an ``all_gather`` after step 2 (every rank's twiddled
+columns, for its transpose) and after step 4 (every rank's rows) gives each
+rank the whole value.
+
 Departure from the reference: the inverse carries the 1/n scale (each
 stage's inverse tables fold in 1/n1 and 1/n2), so ``inverse=True`` is
 ``dvec.ifft``; the reference leaves the scale to its caller.  The shards
-run one after another from one thread (the card queues each launch, so
-shards on distinct cards overlap where no host fetch intervenes).
+of one process run one after another from one thread (the card queues each
+launch, so shards on distinct cards overlap where no host fetch intervenes).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from ..fields import dvec
 from ..fields.bls12_377 import FR_MODULUS, fr_root_of_unity
 from ..fields.frvec import FrVec
 from ..ops.ntt import _row_powers, get_ntt
+from . import multihost
 
 P = FR_MODULUS
 L = dvec.L
@@ -86,29 +93,36 @@ def sharded_transform(devices, x: torch.Tensor, inverse: bool = False) -> torch.
     """The 4-step transform of the [16, n] natural-order Montgomery tensor
     ``x`` over ``devices`` -> [16, n] on ``x``'s device (the inverse scaled
     by 1/n, as ``dvec.ifft``)."""
-    devices = [resolve(d) for d in devices]
+    devices = [None if d is None else resolve(d) for d in devices]
     n = x.shape[1]
     if not sharded_transform_supported(devices, n):
         raise ValueError(f"a transform of {n} points does not split over {len(devices)} shards")
     shards = len(devices)
     n1, n2 = _split(n)
     w, h = n2 // shards, n1 // shards
-    matrix = x.reshape(L, n1, n2)
+    columns = multihost.put_global(x.reshape(L, n1, n2), devices, dim=2)  # [16, n1, w] each
     twiddled = []
-    for d, dev in enumerate(devices):  # column transforms, then the twiddle
-        cols = matrix[:, :, d * w:(d + 1) * w].to(dev).permute(0, 2, 1).contiguous()  # [16, w, n1]
+    for d, (dev, cols) in enumerate(zip(devices, columns)):  # column transforms, twiddle
+        if dev is None:
+            twiddled.append(None)
+            continue
+        cols = cols.permute(0, 2, 1).contiguous()  # [16, w, n1]
         ntt = get_ntt(n1, dev)
         y = ntt.ifft_mont_batch(cols) if inverse else ntt.fft_mont_batch(cols)
         tw = _twiddles(n, inverse, shards, d, dev)
         twiddled.append(dvec.mul(y.reshape(L, -1), tw.reshape(L, -1)).reshape(L, w, n1))
+    twiddled = multihost.fetch_global(twiddled)
     out = []
     for e, dev in enumerate(devices):  # transpose, then the row transforms
+        if dev is None:
+            out.append(None)
+            continue
         rows = torch.cat([y[:, :, e * h:(e + 1) * h].to(dev) for y in twiddled], dim=1)
         rows = rows.permute(0, 2, 1).contiguous()  # [16, h, n2]
         ntt = get_ntt(n2, dev)
         z = ntt.ifft_mont_batch(rows) if inverse else ntt.fft_mont_batch(rows)
-        out.append(z.to(x.device))
-    c = torch.cat(out, dim=1)  # [16, n1, n2]: C[k1, k2]
+        out.append(z)
+    c = torch.cat([z.to(x.device) for z in multihost.fetch_global(out)], dim=1)  # C[k1, k2]
     return c.permute(0, 2, 1).reshape(L, n)  # x̂[k1 + n1·k2] = C[k1, k2]
 
 

@@ -4,6 +4,7 @@ simple-payments ledger's serial path (without the per-transaction Marlin
 leg), and the demo CLI's argument handling. Tolerance 0."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -29,6 +30,7 @@ from simpleworks_tpu_torch.fields import serialization as serde
 from simpleworks_tpu_torch.fields.bls12_377 import ConstraintF, Fq
 from simpleworks_tpu_torch.utils.rng import test_rng
 
+os.environ.setdefault("SWTPU_THREADS", "1")  # the native runtime's pool, read once a process
 torch.set_num_threads(1)  # host arithmetic only: more threads only contend with the other workers
 
 

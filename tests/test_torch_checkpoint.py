@@ -8,6 +8,7 @@ same planes and proof bytes; a truncated file rebuilds; with the switches at
 circuit on one state (its SRS carried over), and a key read back proves the
 same bytes.  Tolerance 0."""
 
+import os
 import struct
 
 import pytest
@@ -22,6 +23,7 @@ from simpleworks_tpu_torch.kzg import kzg10
 from simpleworks_tpu_torch.marlin import serialization as serde
 
 CPU = torch.device("cpu")
+os.environ.setdefault("SWTPU_THREADS", "1")  # the native runtime's pool, read once a process
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
 #: the smallest SRS that indexes test_circuit(3, 3) (n = 32, m = 64: degree 189)

@@ -4,6 +4,8 @@ held against the JAX package's dvec on the CPU, value for value.
 Every reference call at a new width is a fresh XLA compile, so the cases
 share one width (N) wherever the function allows."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from simpleworks_tpu_torch.fields.bls12_377 import FR_MODULUS as P
 from simpleworks_tpu_torch.fields.device import from_reference_limbs, mont_scalar
 
 CPU = torch.device("cpu")
+os.environ.setdefault("SWTPU_THREADS", "1")  # the native runtime's pool, read once a process
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
 N = 3  # odd: the halving tree carries a lane

@@ -3,6 +3,8 @@ against the JAX package on the same numpy-seeded inputs, tolerance 0: field
 arithmetic is exact.  The reference's Pallas kernels run in interpret mode
 at a 128-lane tile, as tests/test_pallas.py runs them."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ from simpleworks_tpu_torch.ops import mont_mul as mm
 from simpleworks_tpu_torch.utils import rng as port_rng
 
 CPU = torch.device("cpu")
+os.environ.setdefault("SWTPU_THREADS", "1")  # the native runtime's pool, read once a process
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
 TILE = 128  # smallest legal Pallas lane tile: keeps interpret mode quick

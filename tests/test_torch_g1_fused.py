@@ -12,6 +12,8 @@ wrapping uint32 add, subtract, multiply, shift and where, which numpy and
 XLA compute alike, and numpy runs its ~100,000 one-row slices a hundred
 times faster than eager JAX dispatch."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ from simpleworks_tpu_torch.fields.device import from_reference_limbs, to_referen
 from simpleworks_tpu_torch.ops import g1_fused, g1_limb
 
 CPU = torch.device("cpu")
+os.environ.setdefault("SWTPU_THREADS", "1")  # the native runtime's pool, read once a process
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
 #: six lanes of the six cases, two general ones

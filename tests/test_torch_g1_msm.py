@@ -16,6 +16,7 @@ reference's whole accumulate program is not compiled here (tens of
 seconds)."""
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,7 @@ from simpleworks_tpu_torch.kzg.msm import msm
 from simpleworks_tpu_torch.ops import g1_fused, g1_limb, msm_pippenger, srs_device
 
 CPU = torch.device("cpu")
+os.environ.setdefault("SWTPU_THREADS", "1")  # the native runtime's pool, read once a process
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
 rng = np.random.default_rng(33)

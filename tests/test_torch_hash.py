@@ -3,6 +3,8 @@ the JAX package's: equal parameters, equal native outputs on seed-made inputs,
 and gadgets equal to native with constraint systems equal term for term to
 the reference gadgets'. Tolerance 0: field values and bytes exact."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,7 @@ from simpleworks_tpu_torch.hash import pedersen, pedersen_gadget, poseidon
 from simpleworks_tpu_torch.r1cs.constraint_system import ConstraintSystem
 from simpleworks_tpu_torch.utils.rng import test_rng
 
+os.environ.setdefault("SWTPU_THREADS", "1")  # the native runtime's pool, read once a process
 torch.set_num_threads(1)  # host arithmetic only: more threads only contend with the other workers
 
 

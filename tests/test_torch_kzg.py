@@ -3,6 +3,8 @@ batch_check — held against the JAX package's kzg10 from the same
 ``test_rng``: the same SRS points, the same commitment bytes, the same
 opening witness and blinding evaluation."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -16,9 +18,11 @@ from simpleworks_tpu_torch.errors import SimpleworksError
 from simpleworks_tpu_torch.fields import dvec
 from simpleworks_tpu_torch.fields.bls12_377 import FR_MODULUS as P
 from simpleworks_tpu_torch.kzg import kzg10
+from simpleworks_tpu_torch.ops.msm_pippenger import msm_device_mont
 from simpleworks_tpu_torch.utils.rng import test_rng
 
 CPU = torch.device("cpu")
+os.environ.setdefault("SWTPU_THREADS", "1")  # the native runtime's pool, read once a process
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
 
@@ -164,14 +168,14 @@ def test_commit_checks_true_degree(srs_pair):
     assert kzg10.commit(srs, dvec.zeros(5, CPU)).comm.is_identity()
 
 
-def test_commit_through_the_tensor_msm(srs_pair, opened, monkeypatch):
-    """CPU tensors this narrow take the host Pippenger in ``commit``; the
-    tensor MSM (the card's route) gives the same commitment and shifted
-    commitment."""
+def test_commit_through_the_tensor_msm(srs_pair, opened):
+    """CPU tensors take the host MSM in ``commit``; the tensor MSM (the
+    card's route, run here through the plain versions) gives the same
+    commitment and shifted commitment."""
     _, srs = srs_pair
-    coeffs = opened["coeffs"]["bounded"]
-    monkeypatch.setattr(kzg10, "HOST_MSM_MAX_WIDTH", 0)
-    comm = kzg10.commit(srs, dvec.from_ints(coeffs, CPU), POLYS["bounded"][1])
-    monkeypatch.undo()
-    assert comm.serialize() == kzg10.commit(srs, dvec.from_ints(coeffs, CPU),
-                                            POLYS["bounded"][1]).serialize()
+    coeffs = dvec.from_ints(opened["coeffs"]["bounded"], CPU)
+    bound = POLYS["bounded"][1]
+    comm = kzg10.commit(srs, coeffs, bound)
+    assert comm.comm == msm_device_mont(srs.powers_xy, coeffs)
+    assert comm.shifted_comm == msm_device_mont(srs.powers_xy, coeffs,
+                                                offset=srs.max_degree - bound)

@@ -5,6 +5,7 @@ after serde, tampered proofs rejected.  Both packages prove over one SRS
 (the reference's, carried over with ``srs_from_reference``)."""
 
 import dataclasses
+import os
 
 import pytest
 import torch
@@ -31,6 +32,7 @@ from simpleworks_tpu_torch.ops import g1_limb
 from simpleworks_tpu_torch.r1cs.constraint_system import ONE, ConstraintSystem
 
 CPU = torch.device("cpu")
+os.environ.setdefault("SWTPU_THREADS", "1")  # the native runtime's pool, read once a process
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
 
@@ -80,6 +82,9 @@ CIRCUITS = {
     "ell_eq_n": (lambda: instance_only(ConstraintSystem, ONE, ConstraintF),
                  lambda: instance_only(RefCS, REF_ONE, RefF), [5]),
 }
+#: the chain again, indexed and proved with the native runtime off: the
+#: plain versions carry the whole prove
+CIRCUITS["chain_native_off"] = CIRCUITS["chain"]
 
 
 @pytest.fixture(scope="module")
@@ -105,8 +110,13 @@ def proved(request, srs_pair):
         ref_pk, ref_vk = ref_marlin.index(ref_srs, ref_cs)
         ref_proof = ref_marlin.prove(ref_pk, ref_cs)
     cs = build()
-    pk, vk = marlin.index(srs, cs)
-    return {"public": public, "cs": cs, "pk": pk, "vk": vk, "proof": marlin.prove(pk, cs),
+    with pytest.MonkeyPatch.context() as mp:
+        if request.param.endswith("_native_off"):
+            mp.setenv("SWTPU_NATIVE", "0")
+            marlin._INDEX_MEMO.clear()  # index anew, on the plain versions
+        pk, vk = marlin.index(srs, cs)
+        proof = marlin.prove(pk, cs)
+    return {"public": public, "cs": cs, "pk": pk, "vk": vk, "proof": proof,
             "ref_vk": ref_vk, "ref_proof": ref_proof}
 
 

@@ -6,6 +6,8 @@ Tolerance 0. The port's SimpleMerkleTree round trip on the CPU (index, prove,
 verify) is under ``slow``, as the reference's is
 (tests/test_simple_merkle_tree.py)."""
 
+import os
+
 import pytest
 import torch
 
@@ -22,6 +24,7 @@ from simpleworks_tpu_torch.merkle.simple_merkle_tree import (
     check_leave_exists_u8,
 )
 
+os.environ.setdefault("SWTPU_THREADS", "1")  # the native runtime's pool, read once a process
 torch.set_num_threads(1)  # host arithmetic only: more threads only contend with the other workers
 
 

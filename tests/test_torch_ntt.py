@@ -4,6 +4,8 @@ the JAX package on the CPU, tolerance 0: the plain reduce against the Pallas
 transforms against the reference's domain NTT and the port's pure-Python
 ``ntt_host``, and the level-table tree against ``_build_level_tables``."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from simpleworks_tpu_torch.ops._build import LAUNCHES
 from simpleworks_tpu_torch.poly.domain import ntt_host
 
 CPU = torch.device("cpu")
+os.environ.setdefault("SWTPU_THREADS", "1")  # the native runtime's pool, read once a process
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
 rng = np.random.default_rng(31)

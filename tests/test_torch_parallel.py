@@ -6,6 +6,7 @@ routed over eight shards.  Tolerance 0: equal integers, group elements and
 bytes."""
 
 import copy
+import os
 
 import numpy as np
 import pytest
@@ -38,6 +39,7 @@ from simpleworks_tpu_torch.parallel.witness_dp import make_sharded_checker, shar
 from simpleworks_tpu_torch.r1cs.constraint_system import ONE, ConstraintSystem
 from simpleworks_tpu_torch.r1cs.satisfiability import DeviceR1CS
 
+os.environ.setdefault("SWTPU_THREADS", "1")  # the native runtime's pool, read once a process
 torch.set_num_threads(1)  # more threads only contend with the other test workers
 
 
@@ -168,27 +170,26 @@ def msm_points():
     return ref_srs.powers_of_g, g1_limb.native_points_to_limb_major(ref_srs.powers_native, CPU)
 
 
-@pytest.mark.parametrize("n, shards, host_width", [(13, 8, None), (13, 2, 0), (1 << 10, 8, None)],
+@pytest.mark.parametrize("n, shards, tensor", [(13, 8, False), (13, 2, True), (1 << 10, 8, False)],
                          ids=["13", "13-tensor-shards", "1024"])
-def test_sharded_msm_matches_reference(msm_points, monkeypatch, n, shards, host_width):
+def test_sharded_msm_matches_reference(msm_points, monkeypatch, n, shards, tensor):
     """CPU shards (at 13 points over 8, the last ones short or empty) against
     the unsharded device MSM and the JAX package's Pippenger, as group
-    elements.  A CPU shard takes the host Pippenger up to
-    ``HOST_MSM_MAX_WIDTH`` coefficients, as an unsharded commit does, so one
-    case sets it to 0: every shard then runs ``msm_device_mont``, the route
-    of every shard on the card."""
+    elements.  A CPU shard takes the host MSM, as an unsharded commit does,
+    so one case has every shard run ``msm_device_mont`` instead (through
+    the plain versions), the route of every shard on the card."""
     ref_points, planes = msm_points
     offset = 7
     scalars = seeded_values(n, 100 + n)
     coeffs = dvec.from_ints(scalars, CPU)
     expected = ref_msm(ref_points[offset : offset + n], scalars).serialize_compressed()
-    if host_width is not None:
-        monkeypatch.setattr(kzg10, "HOST_MSM_MAX_WIDTH", host_width)
+    if tensor:
+        monkeypatch.setattr(kzg10, "device_msm", msm_device_mont)
     devices = ["cpu"] * shards
     got = msm_sharded.sharded_msm(devices, planes, coeffs, offset=offset)
     assert got.serialize_compressed() == expected
     assert got == msm_device_mont(planes, coeffs, offset=offset)
-    if host_width is None:
+    if not tensor:
         points = g1_limb.points_from_affine_planes(planes[:, :, offset : offset + n])
         assert msm_sharded.sharded_msm_host(devices, points, scalars) == got
 
@@ -237,6 +238,9 @@ def test_prove_bytes_one_vs_eight_shards(srs_pair, monkeypatch):
 
     monkeypatch.setattr(ntt_sharded, "sharded_transform", counted("ntt", transform))
     monkeypatch.setattr(msm_sharded, "sharded_msm", counted("msm", msm))
+    # CPU coefficients shard the SRS's host rows when the native runtime runs
+    monkeypatch.setattr(msm_sharded, "sharded_msm_native",
+                        counted("msm", msm_sharded.sharded_msm_native))
     monkeypatch.setattr(accel, "SHARDED_NTT_THRESHOLD", 128)
     # the commits of ≥ 256 coefficients (g_2, h_2 and both openings): each
     # sharded MSM runs eight host Pippengers, whose bucket sums dominate at

@@ -4,6 +4,7 @@ prover, the abort on a stage's error, ``State.validate_block`` on the
 reference test's block, the thread-safe shared state the pipeline's threads
 rely on, and the CLI's proof-pipeline sequence.  Tolerance 0."""
 
+import os
 import sys
 import threading
 import time
@@ -33,6 +34,7 @@ from simpleworks_tpu_torch.parallel import proof_pipeline
 from simpleworks_tpu_torch.r1cs.constraint_system import ONE, ConstraintSystem
 from simpleworks_tpu_torch.utils.rng import test_rng
 
+os.environ.setdefault("SWTPU_THREADS", "1")  # the native runtime's pool, read once a process
 torch.set_num_threads(1)  # more threads only contend with the other test workers
 
 

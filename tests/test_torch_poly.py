@@ -2,6 +2,8 @@
 poly.domain, poly.dense) held against the JAX package's host twins on the
 CPU, tolerance 0, with ``FrVec.spmv`` on repeated outputs."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from simpleworks_tpu_torch.poly.dense import DensePoly
 from simpleworks_tpu_torch.poly.domain import Radix2Domain
 
 CPU = torch.device("cpu")
+os.environ.setdefault("SWTPU_THREADS", "1")  # the native runtime's pool, read once a process
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
 rng = np.random.default_rng(47)

@@ -5,6 +5,8 @@ verify rejecting a wrong message, and the smallest gadget circuit
 (examples/test_circuit) proved on the CPU with proof and verifying-key bytes
 equal to the reference's host prover."""
 
+import os
+
 import pytest
 import torch
 
@@ -28,6 +30,7 @@ from simpleworks_tpu_torch.schnorr.gadget import (
 from simpleworks_tpu_torch.utils.rng import test_rng
 
 CPU = torch.device("cpu")
+os.environ.setdefault("SWTPU_THREADS", "1")  # the native runtime's pool, read once a process
 torch.set_num_threads(1)  # tiny tensors: more threads only contend with the other test workers
 
 
