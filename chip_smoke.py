@@ -22,10 +22,17 @@ printed as one JSON line, any failure raising:
    [24, 32768] and [24, 155648], on seed-made points with the identities,
    doublings and P + (-P) mixed in, timed; and 2048 lanes against the host
    point law;
-5. the NTT: the reduce kernel against its plain version on the real
-   first-level planes of a seed-made 2^20-point transform (exact), the
-   round trip ifft(fft(x)) == x at 2^20, and fft against the pure-Python
-   ntt_host at 2^12 (which shows the limb matmul exact on the card);
+5. the NTTs: the limb matmul's reduce kernel (ops/ntt.py, the TPU's route,
+   which no path runs) against its plain version on the real first-level
+   planes of a seed-made 2^20-point transform (exact); the butterfly NTT's
+   bit-reversal and stage kernels (poly/ntt_device.py, the route of every
+   transform of the paths) against their plain versions, stage by stage,
+   exactly, at 2^20 forward and inverse and on the sharded path's column
+   and row batches; the butterfly against the pure-Python ntt_host at 2^12
+   and against the limb matmul at 2^20 both ways; the round trip
+   ifft(fft(x)) == x at 2^20 through dvec, which must launch the
+   butterfly's kernels and not the reduce; both NTTs' fft and ifft timed at
+   2^17, 2^19 and 2^20 beside their tables' seconds;
    then DeviceField (fields/device.py) on [L, 2^16] Fr and Fq lanes, each op
    against the plain version of its kernel and host integers, and
    curves/g1_device.py: the fixed-base ladder for 256 scalars at 253 bits
@@ -82,8 +89,8 @@ printed as one JSON line, any failure raising:
     the JAX package's (tests/torch_fixtures/merkle_tree_reference.json);
 11. the payments path: the simple-payments demo sequence (a transfer
     validated and applied, an overspend, a forged signature, an unknown
-    recipient) with the Marlin pipeline of the transfer's validate and of
-    the unknown recipient's on the card (the schnorr circuit at SRS(100k,
+    recipient) with the Marlin pipeline of each of its four validates whose
+    signature check passes on the card (the schnorr circuit at SRS(100k,
     25k, 300k), each verify True); the verdicts, the balances (5 and 5) and
     the account tree's roots equal the same fixture's;
 12. the block path: State.validate_block(prove=True) on a 32-account ledger
@@ -114,8 +121,9 @@ printed as one JSON line, any failure raising:
     CPU path is the one the tests hold against the JAX package);
 18. the kernels line: each kernel's launches on each path (the counts set to
     0 before the path and read after it; every kernel a path runs must have
-    launched there), its largest error against the plain version, its time,
-    the plain version's, and the least time the card could take (bound_ms).
+    launched there, and the limb matmul's reduce on none), its largest error
+    against the plain version, its time, the plain version's, and the least
+    time the card could take (bound_ms).
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -161,10 +169,16 @@ FR_LANES = 1 << 19
 #: row width (msm_pippenger.target_lanes), and the c = 13 group
 G1_LANES = (32_768, FQ_LANES)
 
-#: the NTT checks: the reduce kernel and the round trip at 2^20 (the largest
-#: transform of the Marlin path, round 3's 4m), the oracle at 2^12
+#: the NTT checks: the reduce kernel, the butterfly's kernels and the round
+#: trip at 2^20 (the largest transform of the Marlin path, round 3's 4m),
+#: the oracle at 2^12; the butterfly's kernels also on the sharded path's
+#: column and row batches of its widest transform (the chain's 4m = 2^17
+#: over SHARDS shards); both NTTs timed at the warm prove's sizes (n = 2^17,
+#: nq = 4n = 2^19, ne = 4m = 2^20; m = 2^18 runs once)
 NTT_LOG = 20
 ORACLE_LOG = 12
+SHARDED_NTT_LOG = 17
+NTT_TIMED_LOGS = (17, 19, 20)
 #: the Marlin path: the bench's schnorr-verify circuit (bench.py
 #: bench_marlin_prove: 77,012 constraints, no public input beyond the
 #: constant, n = 2^17 and m = 2^18) on the bench's SRS (degree 1,572,861)
@@ -191,11 +205,10 @@ REFERENCE_FIXTURE = Path(__file__).resolve().parent / "tests" / "torch_fixtures"
 WORKLOAD_FIXTURE = REFERENCE_FIXTURE.parent / "merkle_tree_reference.json"
 #: the payments path: the Marlin pipelines each step of the sequence runs.
 #: The CLI's sequence runs one at each of the four validates whose native
-#: signature check passes; the path keeps two of them, a passing and a
-#: failing verdict: with all four (40.0 s) the script took 283 s on the
-#: H100, over its 225 s (the block path proves the same circuit six times)
-PAYMENTS_PIPELINES = {"sample": 0, "register": 0, "transfer_validate": 1, "transfer_apply": 0,
-                      "overspend": 0, "forged_signature": 0, "unknown_recipient": 1}
+#: signature check passes, and the path runs all four (26.1 s; the script
+#: 212.3 s on the H100, inside its 225 s)
+PAYMENTS_PIPELINES = {"sample": 0, "register": 0, "transfer_validate": 1, "transfer_apply": 1,
+                      "overspend": 1, "forged_signature": 0, "unknown_recipient": 1}
 #: the checkpoint path: the flag that makes this script the path's second
 #: process, and how long the first waits for it
 CHECKPOINT_CHILD_FLAG = "--checkpoint-child"
@@ -254,7 +267,8 @@ FIELD_SOURCE = "simpleworks_tpu_torch/csrc/field_kernels.cu"
 NTT_SOURCE = "simpleworks_tpu_torch/csrc/ntt_kernels.cu"
 G1_SOURCE = "simpleworks_tpu_torch/csrc/g1_kernels.cu"
 SOURCES = {"mont_mul": FIELD_SOURCE, "mod_add": FIELD_SOURCE, "mod_sub": FIELD_SOURCE,
-           "mont_pow": FIELD_SOURCE, "ntt_reduce": NTT_SOURCE,
+           "mont_pow": FIELD_SOURCE, "ntt_reduce": NTT_SOURCE, "ntt_bitrev": NTT_SOURCE,
+           "ntt_butterfly": NTT_SOURCE,
            "g1_fused_add": G1_SOURCE, "g1_fused_madd": G1_SOURCE,
            "g1_bucket_combine": G1_SOURCE}
 REPLACES = {
@@ -263,6 +277,10 @@ REPLACES = {
     "mod_sub": "simpleworks_tpu/ops/mont_mul_pallas.py:154",
     "mont_pow": "simpleworks_tpu/ops/mont_mul_pallas.py:111",
     "ntt_reduce": "simpleworks_tpu/ops/ntt_mxu.py:95",
+    # no Pallas kernel: the XLA butterfly NTT the reference runs off a TPU,
+    # its gather by the bit-reversed indices and its radix-2 stage
+    "ntt_bitrev": "simpleworks_tpu/poly/ntt_device.py:81",
+    "ntt_butterfly": "simpleworks_tpu/poly/ntt_device.py:82",
     "g1_fused_add": "simpleworks_tpu/ops/g1_fused_pallas.py:112",
     "g1_fused_madd": "simpleworks_tpu/ops/g1_fused_pallas.py:255",
     # the add kernel, run by the fold and the two suffix passes of
@@ -271,6 +289,11 @@ REPLACES = {
 }
 #: the kernels that compute in the field alone (check_kernels)
 FIELD_KERNELS = ("mont_mul", "mod_add", "mod_sub", "mont_pow")
+#: the butterfly NTT's kernels: every transform of the prover's paths
+BUTTERFLY_KERNELS = ("ntt_bitrev", "ntt_butterfly")
+#: kernels held by check_ntt that no path runs: the limb-matmul NTT's reduce
+#: (the reference's MXU route, which it runs only on a TPU)
+OFF_PATH = ("ntt_reduce",)
 #: Fq multiplies of one lane of each point add (or of one valid cell of the
 #: accumulate, or of one lane of a combine step that runs the add): the
 #: general formula, and the doubling that only the lanes needing it run
@@ -718,52 +741,173 @@ def check_combine(device, accumulated=(), log_n: int = COMBINE_LOG,
     return results
 
 
-def check_ntt(device, log_n: int = NTT_LOG, oracle_log: int = ORACLE_LOG) -> dict:
-    """The reduce kernel against its plain version on real first-level
-    planes (exact), the NTT round trip at 2^log_n, and fft against the
-    pure-Python ntt_host at 2^oracle_log."""
+def check_ntt(device, log_n: int = NTT_LOG, oracle_log: int = ORACLE_LOG,
+              sharded_log: int = SHARDED_NTT_LOG, shards: int = SHARDS,
+              timed_logs=NTT_TIMED_LOGS) -> dict:
+    """The two NTTs on the card.  The limb matmul (ops/ntt.py, the TPU's
+    route, which no path runs): its reduce kernel against its plain version
+    on real first-level planes (exact).  The butterfly (poly/ntt_device.py,
+    the route of dvec.fft/ifft and of the sharded plane): its bit-reversal
+    and stage kernels against their plain versions, exactly, each stage on
+    the input its plain version gets, at 2^log_n forward and inverse and on
+    the sharded plane's column and row batches of a 2^sharded_log transform;
+    its fft against the pure-Python ntt_host at 2^oracle_log; the two NTTs
+    equal at 2^log_n both ways; dvec's round trip at 2^log_n, which must run
+    the butterfly's kernels and not the limb matmul's; and both NTTs' fft
+    and ifft timed at 2^timed_logs beside the seconds their tables took."""
     import torch
 
     from simpleworks_tpu_torch.fields import dvec
     from simpleworks_tpu_torch.fields.bls12_377 import fr_root_of_unity
-    from simpleworks_tpu_torch.ops import ntt
+    from simpleworks_tpu_torch.ops import _build, ntt
+    from simpleworks_tpu_torch.ops import ntt_butterfly as bf
+    from simpleworks_tpu_torch.parallel.ntt_sharded import _split
     from simpleworks_tpu_torch.poly.domain import ntt_host
+    from simpleworks_tpu_torch.poly.ntt_device import get_device_ntt
+
+    routes = {"butterfly": get_device_ntt, "limb_matmul": ntt.get_ntt}
+    tables_s: dict = {}
+
+    def transform(route, m):
+        """The route's transform of m points; the seconds of its first build."""
+        if (route, m) not in tables_s:
+            sync(device)
+            t0 = time.perf_counter()
+            routes[route](m, device)
+            sync(device)
+            tables_s[(route, m)] = time.perf_counter() - t0
+        return routes[route](m, device)
+
+    def max_err(got, want):
+        return int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
 
     n = 1 << log_n
     x = random_poly(n, 7, device)
-    t0 = time.perf_counter()
-    transform = ntt.get_ntt(n, device)
-    sync(device)
-    tables_s = time.perf_counter() - t0
-    planes = transform.partial_planes(x)
+    limb = transform("limb_matmul", n)
+    planes = limb.partial_planes(x)
     if int(planes.max()) >= 1 << 29 or int(planes.min()) < 0:
         raise AssertionError("partial planes outside the reduce kernel's bound")
     got, ref = ntt.ntt_reduce(planes), ntt.ntt_reduce_plain(planes)
     sync(device)
-    err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
     reduce_row = {"shape": list(planes.shape), "equal": bool(torch.equal(got, ref)),
-                  "max_abs_err": err,
+                  "max_abs_err": max_err(got, ref),
                   "ms": time_ms(lambda: ntt.ntt_reduce(planes), device, inner=20, queue_ahead=True),
                   "plain_ms": time_ms(lambda: ntt.ntt_reduce_plain(planes), device, reps=3)}
     if not reduce_row["equal"]:
         raise AssertionError(f"ntt_reduce kernel disagrees with its plain version at {list(planes.shape)}")
     del planes, got, ref
 
+    def check_kernels_on(x3, inverse: bool):
+        """Both butterfly kernels on the batch x3 [16, B, m] against their
+        plain versions -> (bit-reversal row, stages row, the transform)."""
+        m = x3.shape[2]
+        stages = m.bit_length() - 1
+        tr = transform("butterfly", m)
+        table = tr.twiddles_inv if inverse else tr.twiddles_fwd
+
+        def scale(s):
+            return tr.n_inv if inverse and s == stages - 1 else None
+
+        def run_stages(stage_fn, z):
+            for s in range(stages):
+                stage_fn(z, s, table, scale(s))
+
+        y, want = bf.ntt_bitrev(x3), bf.ntt_bitrev_plain(x3)
+        sync(device)
+        rev = bf.bit_reverse_indices(m, device)
+        rev_row = {"shape": list(x3.shape), "inverse": inverse, "equal": bool(torch.equal(y, want)),
+                   "max_abs_err": max_err(y, want),
+                   "ms": time_ms(lambda: bf.ntt_bitrev(x3), device, inner=10, queue_ahead=True),
+                   "plain_ms": time_ms(lambda: bf.ntt_bitrev_plain(x3), device, reps=3),
+                   # one PyTorch call computes the permutation: the yardstick
+                   "library_ms": time_ms(lambda: x3.index_select(2, rev), device, inner=10,
+                                         queue_ahead=True)}
+        equal, err = True, 0
+        for s in range(stages):
+            want = bf.ntt_butterfly_plain(y.clone(), s, table, scale(s))
+            bf.ntt_butterfly(y, s, table, scale(s))
+            sync(device)
+            equal = equal and bool(torch.equal(y, want))
+            err = max(err, max_err(y, want))
+        scratch = y.clone()  # timed in place: the values stay below p
+        fly_row = {"shape": list(x3.shape), "inverse": inverse, "stages": stages,
+                   "equal": equal, "max_abs_err": err,
+                   "ms": time_ms(lambda: run_stages(bf.ntt_butterfly, scratch), device, inner=3,
+                                 queue_ahead=True),
+                   "plain_ms": time_ms(lambda: run_stages(bf.ntt_butterfly_plain, scratch),
+                                       device, reps=3)}
+        for name, row in (("ntt_bitrev", rev_row), ("ntt_butterfly", fly_row)):
+            if not row["equal"]:
+                raise AssertionError(f"{name} kernel disagrees with its plain version at "
+                                     f"{row['shape']} (inverse={inverse})")
+        return rev_row, fly_row, y
+
+    # the sharded plane's batches: columns [16, n2/shards, n1], rows
+    # [16, n1/shards, n2]; then 2^log_n, the forward transform last (the
+    # kernels line's row)
+    n1, n2 = _split(1 << sharded_log)
+    batches = [(n2 // shards, n1), (n1 // shards, n2)]
+    bitrev_rows, butterfly_rows = [], []
+    for k, (b, m) in enumerate(batches):
+        xb = random_poly(b * m, 20 + k, device).reshape(16, b, m)
+        for inverse in (False, True):
+            rev_row, fly_row, _ = check_kernels_on(xb, inverse)
+            bitrev_rows.append(rev_row)
+            butterfly_rows.append(fly_row)
+    transformed = {}
+    for inverse in (True, False):
+        rev_row, fly_row, transformed[inverse] = check_kernels_on(x[:, None, :], inverse)
+        bitrev_rows.append(rev_row)
+        butterfly_rows.append(fly_row)
+
+    # the two NTTs agree; dvec's transforms run the butterfly's kernels
+    fly = transform("butterfly", n)
+    for inverse, run_fly, run_limb in ((False, fly.fft_mont, limb.fft_mont),
+                                       (True, fly.ifft_mont, limb.ifft_mont)):
+        got = run_fly(x)
+        if not (torch.equal(got, transformed[inverse][:, 0, :]) and torch.equal(got, run_limb(x))):
+            raise AssertionError(f"the butterfly and the limb matmul differ at 2^{log_n} "
+                                 f"(inverse={inverse})")
+    del transformed
+    before = dict(_build.LAUNCHES)
     y = dvec.fft(x, n)
     back = dvec.ifft(y, n)
+    sync(device)
+    dvec_launches = {k: _build.LAUNCHES[k] - before[k]
+                     for k in ("ntt_bitrev", "ntt_butterfly", "ntt_reduce")}
+    on_card = device.type == "cuda"  # a CPU tensor's plain route launches nothing
+    if dvec_launches != {"ntt_bitrev": 2 * on_card, "ntt_butterfly": 2 * log_n * on_card,
+                         "ntt_reduce": 0}:
+        raise AssertionError(f"dvec's transforms did not run the butterfly alone: {dvec_launches}")
     if not torch.equal(back, x):
         raise AssertionError(f"ifft(fft(x)) != x at 2^{log_n}")
-    fft_ms = time_ms(lambda: dvec.fft(x, n), device, reps=3)
-    ifft_ms = time_ms(lambda: dvec.ifft(y, n), device, reps=3)
     del y, back
 
     m = 1 << oracle_log
     xs = random_poly(m, 8, device)
-    if dvec.to_ints(dvec.fft(xs, m)) != ntt_host(dvec.to_ints(xs), fr_root_of_unity(m)):
-        raise AssertionError(f"fft differs from ntt_host at 2^{oracle_log}")
-    return {"reduce": reduce_row, "roundtrip_log_n": log_n, "tables_s": tables_s,
-            "fft_ms": fft_ms, "ifft_ms": ifft_ms, "oracle_log_n": oracle_log,
-            "oracle_equal": True}
+    oracle = transform("butterfly", m)
+    evals = oracle.fft_mont(xs)
+    if dvec.to_ints(evals) != ntt_host(dvec.to_ints(xs), fr_root_of_unity(m)):
+        raise AssertionError(f"the butterfly's fft differs from ntt_host at 2^{oracle_log}")
+    if not torch.equal(oracle.ifft_mont(evals), xs):
+        raise AssertionError(f"the butterfly's ifft(fft(x)) != x at 2^{oracle_log}")
+
+    timings = []
+    for log_t in timed_logs:
+        xt = random_poly(1 << log_t, 9, device)
+        row = {"log_n": log_t}
+        for route in routes:
+            tr = transform(route, 1 << log_t)
+            yt = tr.fft_mont(xt)
+            row[route] = {"tables_s": tables_s[(route, 1 << log_t)],
+                          "fft_ms": time_ms(lambda: tr.fft_mont(xt), device, reps=3),
+                          "ifft_ms": time_ms(lambda: tr.ifft_mont(yt), device, reps=3)}
+        timings.append(row)
+    ntt.get_ntt.cache_clear()  # no path runs the limb matmul: free its tables
+    return {"reduce": reduce_row, "bitrev": bitrev_rows, "butterfly": butterfly_rows,
+            "sharded_batches": [[16, b, m] for b, m in batches], "limb_matmul_equal": True,
+            "roundtrip_log_n": log_n, "dvec_launches": dvec_launches,
+            "oracle_log_n": oracle_log, "oracle_equal": True, "timings": timings}
 
 
 def square_add_chain(steps: int, x: int = PUBLIC_INPUT):
@@ -999,7 +1143,7 @@ def run_pin(device, steps: int = PIN_STEPS, sizes=PIN_SRS_SIZES) -> dict:
             launches = dict(_build.LAUNCHES)
     if out["cuda"] != out["cpu"]:
         raise AssertionError("proof bytes differ between the card and the CPU")
-    if not all(launches[k] for k in ("mont_mul", "ntt_reduce", "g1_fused_madd")):
+    if not all(launches[k] for k in ("mont_mul", "ntt_butterfly", "g1_fused_madd")):
         raise AssertionError(f"the pin's card side did not run on the card: {launches}")
     return {"steps": steps, "srs_sizes": list(sizes), "proof_bytes": len(out["cuda"]),
             "equal_bytes": True, "card_launches": launches}
@@ -1398,6 +1542,26 @@ def bound_ms(name: str, shape, clock_mhz: float, exponent: int | None = None,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def butterfly_bound_ms(name: str, row: dict, clock_mhz: float) -> tuple[float, str]:
+    """The least time the card could take for the butterfly NTT's kernels on
+    ``row``'s [16, B, n] batch (check_ntt): the bit reversal moves each
+    64-byte element in once and out once; the stages (all log2 n of them,
+    the row's work) read the input once, write the output once and read
+    the n/2-entry twiddle table once, and run (n/2)·log2(n)·B Montgomery
+    products (n·B more on the inverse's scaled last stage), each 2 x 8^2
+    multiply-adds."""
+    _, batch, n = row["shape"]
+    nbytes = 2 * 64 * batch * n
+    ops = 0
+    if name == "ntt_butterfly":
+        nbytes += 64 * (n // 2)
+        products = (n // 2) * row["stages"] * batch + (n * batch if row["inverse"] else 0)
+        ops = 2 * 8 * 8 * products
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (SMS * IMAD_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def combine_bound_ms(row: dict, clock_mhz: float) -> tuple[float, str]:
     """The least time the card could take for the combine of ``row``
     (check_combine): bytes, one read of the [3, 24, W·S·b] bucket sums and
@@ -1752,7 +1916,7 @@ def run_serde(device) -> dict:
         raise AssertionError("the proving key read back proves other bytes")
     if pk.device != device or pk2.device != device:
         raise AssertionError(f"the serde's keys live on {pk.device} and {pk2.device}, not {device}")
-    if device.type == "cuda" and not all(launches[k] for k in ("mont_mul", "ntt_reduce",
+    if device.type == "cuda" and not all(launches[k] for k in ("mont_mul", "ntt_butterfly",
                                                                 "g1_fused_madd")):
         raise AssertionError(f"the key read back did not prove on the card: {launches}")
     return {"sizes": list(SERDE_SRS_SIZES), "powers": srs.num_powers, "bytes": len(blob),
@@ -1864,7 +2028,7 @@ def run_small_prove(device, sizes=SMALL_PROVE_SRS_SIZES, circuit=SMALL_PROVE_CIR
     if any(launches["cpu"].values()):
         raise AssertionError(f"the CPU's prove launched kernels: {launches['cpu']}")
     if device.type == "cuda" and not all(launches[device.type][k] for k in (
-            "mont_mul", "ntt_reduce", "g1_fused_madd")):
+            "mont_mul", "ntt_butterfly", "g1_fused_madd")):
         raise AssertionError(f"the card's prove did not launch its kernels: {launches}")
     return {"sizes": list(sizes), "n": vk.info.domain_h_size, "m": vk.info.domain_k_size,
             "card_launches": launches[device.type], "equal_bytes": True, "steps": steps,
@@ -2018,6 +2182,8 @@ def main(argv: list[str]) -> int:
     ntt_checks = check_ntt(device)
     emit({"ntt_checks": ntt_checks})
     checks["ntt_reduce"] = [ntt_checks["reduce"]]
+    checks["ntt_bitrev"] = ntt_checks["bitrev"]
+    checks["ntt_butterfly"] = ntt_checks["butterfly"]
     emit({"device_field_checks": check_device_field(device)})
     emit({"g1_device_checks": check_g1_device(device)})
 
@@ -2071,7 +2237,7 @@ def main(argv: list[str]) -> int:
     # the MSM path runs no setup (the SRS is the KZG path's memo)
     msm = ["g1_fused_madd", "g1_bucket_combine"]
     kzg = ["mont_mul", "mont_pow", "g1_fused_add", *msm]
-    prover = [*FIELD_KERNELS, "ntt_reduce", "g1_fused_add", *msm]
+    prover = [*FIELD_KERNELS, *BUTTERFLY_KERNELS, "g1_fused_add", *msm]
     paths = {}
     paths["kzg"] = drive_counting_pow("KZG", kzg, lambda: run_slice(device))
     emit({"kzg_slice": paths["kzg"]})
@@ -2153,6 +2319,8 @@ def main(argv: list[str]) -> int:
                 row.update(squarings=work["squarings"], multiplies=work["multiplies"])
             if name == "g1_bucket_combine":
                 row["bound_ms"], row["bound_by"] = combine_bound_ms(row, clock_mhz)
+            elif name in BUTTERFLY_KERNELS:
+                row["bound_ms"], row["bound_by"] = butterfly_bound_ms(name, row, clock_mhz)
             elif "depth" in row:
                 row["bound_ms"], row["bound_by"] = accumulate_bound_ms(row, clock_mhz)
             else:
@@ -2164,17 +2332,21 @@ def main(argv: list[str]) -> int:
             "launches": sum(by_path.values()),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"], "library_ms": None,
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": main_row.get("library_ms"),
             "shape": main_row["shape"], "equal": all(r["equal"] for r in rows),
             "launches_by_path": by_path,
             "shapes": [{k: r[k] for k in ("shape", "depth", "windows", "segments", "buckets", "ms",
                                           "plain_ms", "plain_shape", "checked_lanes", "route_ms",
-                                          "bound_ms", "registers", "local_bytes")
+                                          "inverse", "stages", "library_ms", "bound_ms",
+                                          "registers", "local_bytes")
                         if k in r}
                        for r in rows],
         })
-    if any(k["launches"] <= 0 for k in kernels):
+    if any(k["launches"] <= 0 for k in kernels if k["name"] not in OFF_PATH):
         raise AssertionError("a kernel launched on no path")
+    if any(k["launches"] for k in kernels if k["name"] in OFF_PATH):
+        raise AssertionError(f"a path launched a kernel of the limb-matmul NTT: {OFF_PATH}")
     emit({"kernels": kernels})
     if argv == ["--profile"]:
         emit({"profile": profile_prove(device)})

@@ -1,14 +1,15 @@
-// The NTT's reduce kernel for BLS12-377 Fr on Hopper (sm_90a).
+// The NTT's kernels for BLS12-377 Fr on Hopper (sm_90a): the reduce kernel
+// of the limb-matmul NTT, and the two kernels of the radix-2 butterfly NTT.
 //
-// Replaces the Pallas kernel simpleworks_tpu/ops/ntt_mxu.py _reduce_kernel
-// (built by _make_reduce, pallas_call at ntt_mxu.py:171).  The NTT is a
-// 4-step DFT-as-matmul over 8-bit limbs: a limb-plane matrix product
-// (torch.matmul in fp32, exact) leaves 63 int32 partial-limb planes, plane l
-// holding the sum of the byte products at bit offset 8 l, each < 2^29.  This
-// kernel recombines them into 34 carry-normalised 16-bit limbs (a value
-// below p 2^272), Montgomery-reduces by 2^272 (17 rounds of 16-bit REDC with
-// n0 = -p^-1 mod 2^16, as the Pallas kernel does), subtracts p once if
-// needed, and writes the 16 Montgomery limbs of the result.
+// ntt_reduce_kernel replaces the Pallas kernel simpleworks_tpu/ops/ntt_mxu.py
+// _reduce_kernel (built by _make_reduce, pallas_call at ntt_mxu.py:171).
+// That NTT is a 4-step DFT-as-matmul over 8-bit limbs: a limb-plane matrix
+// product (torch.matmul in fp32, exact) leaves 63 int32 partial-limb planes,
+// plane l holding the sum of the byte products at bit offset 8 l, each
+// < 2^29.  This kernel recombines them into 34 carry-normalised 16-bit limbs
+// (a value below p 2^272), Montgomery-reduces by 2^272 (17 rounds of 16-bit
+// REDC with n0 = -p^-1 mod 2^16, as the Pallas kernel does), subtracts p
+// once if needed, and writes the 16 Montgomery limbs of the result.
 //
 // Layout: c is [63, B] int32 with row stride c_rs (element l of lane j at
 // c[l * c_rs + j]); out is a dense [16, B] int32 array of 16-bit limbs.
@@ -19,9 +20,36 @@
 // Design: one thread per lane with the whole carry chain in registers;
 // neighbouring threads read neighbouring lanes of each plane, so every load
 // and store coalesces.  The ragged edge is masked, so there is no tiling.
+//
+// The butterfly NTT (ops/ntt_butterfly.py, poly/ntt_device.py) replaces no
+// Pallas kernel: it ports the XLA transform of simpleworks_tpu/poly/
+// ntt_device.py, which the JAX package runs on every backend that is not a
+// TPU (the MXU DFT-as-matmul above runs only on a TPU).  A transform of
+// n = 2^log_n points over a batch of B contiguous transforms ([16, B, n]
+// int32 Montgomery limbs) is
+//   * ntt_bitrev_kernel: out[., b, j] = x[., b, rev(j)], out of place (the
+//     reference's gather by _bit_reverse_indices, ntt_device.py:81), one
+//     thread an output limb, one limb row after another: the writes
+//     coalesce, the reads gather within a row that L2 holds;
+//   * ntt_butterfly_kernel, once a stage s = 0 .. log_n - 1, in place: one
+//     thread a butterfly i of B n / 2; with h = 2^s it lies in block i / h
+//     at offset k = i % h, lo = its block's k-th element and hi = lo + h;
+//     t = hi w^k (w = omega^(n / 2h), read as entry k n / 2h of one table of
+//     the n/2 Montgomery powers of omega), lo <- lo + t, hi <- lo - t (the
+//     reference's stage at ntt_device.py:82-88).  The inverse's 1/n
+//     (ntt_device.py:89-90) rides on the last stage's launch: both outputs
+//     are multiplied by n^-1 there.
+// What bounds it: a stage reads and writes 128 B a butterfly and runs one
+// Montgomery product (two on the inverse's last stage), 128 64-bit
+// multiply-adds: about 1 multiply-add a byte, so the stages are bound by
+// bytes (~40 us a stage at 2^20, 20 stages a transform).  The product is
+// mont_mul_cc (field_arith.cuh), the carry-chain CIOS the pow proved.  A
+// simple design: one launch a stage, no shared-memory stage blocks.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "field_arith.cuh"
 
 namespace {
 
@@ -99,6 +127,70 @@ __global__ void ntt_reduce_kernel(const int32_t* __restrict__ c, int64_t c_rs,
   }
 }
 
+// ------------------------------------------------------------ butterfly --
+
+constexpr int kWords = 8;  // 32-bit words of an Fr element
+constexpr int kMaxLog = 30;
+
+// The inverse's last stage multiplies both outputs by n^-1 (Montgomery
+// words) when `on`.
+struct Scale {
+  uint32_t w[kWords];
+  int on;
+};
+
+__device__ __forceinline__ uint32_t bit_reverse(uint32_t j, int log_n) {
+  return log_n == 0 ? 0u : __brev(j) >> (32 - log_n);
+}
+
+// x, out: [16, B, n] dense; thread t = b n + j of grid row k writes
+// out[k, b, j].  One limb row a grid row: the blocks of a row run before
+// the next row's, so the row's scattered reads (4 MB at n = 2^20) are served
+// from L2, each 32-byte sector fetched from device memory once; a thread
+// gathering all 16 rows at once spans the whole 64 MB, more than L2 holds.
+__global__ void ntt_bitrev_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
+                                  int64_t B, int log_n) {
+  const int64_t total = B << log_n;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const int64_t n_mask = (static_cast<int64_t>(1) << log_n) - 1;
+  const int64_t src = (t & ~n_mask) | bit_reverse(static_cast<uint32_t>(t & n_mask), log_n);
+  const int64_t row = static_cast<int64_t>(blockIdx.y) * total;
+  out[row + t] = x[row + src];
+}
+
+// One radix-2 stage, in place over x [16, B, n]; tw is the [16, n/2] table
+// of omega^k (or omega^-k), read at stride n / 2h.
+__global__ void ntt_butterfly_kernel(int32_t* __restrict__ x, int64_t B, int log_n, int log_h,
+                                     const int32_t* __restrict__ tw, swt::Modulus<kWords> M,
+                                     Scale S) {
+  const int64_t total = B << log_n;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total / 2) return;
+  const int64_t half_n = static_cast<int64_t>(1) << (log_n - 1);
+  const int64_t b = i >> (log_n - 1);
+  const int64_t r = i & (half_n - 1);  // butterfly within its transform
+  const int64_t k = r & ((static_cast<int64_t>(1) << log_h) - 1);
+  const int64_t lo = (b << log_n) + ((r >> log_h) << (log_h + 1)) + k;
+  const int64_t hi = lo + (static_cast<int64_t>(1) << log_h);
+
+  const swt::View data{x, total, 1};
+  const swt::View table{tw, half_n, static_cast<int64_t>(1) << (log_n - 1 - log_h)};
+  uint32_t a[kWords], c[kWords], w[kWords];
+  swt::load<kWords>(a, data, lo);
+  swt::load<kWords>(c, data, hi);
+  swt::load<kWords>(w, table, k);
+  swt::mont_mul_cc<kWords>(w, c, w, M);  // t = hi w^k
+  swt::mod_add<kWords>(c, a, w, M);      // lo + t
+  swt::mod_sub<kWords>(a, a, w, M);      // lo - t
+  if (S.on) {
+    swt::mont_mul_cc<kWords>(c, c, S.w, M);
+    swt::mont_mul_cc<kWords>(a, a, S.w, M);
+  }
+  swt::store<kWords>(x, total, lo, c);
+  swt::store<kWords>(x, total, hi, a);
+}
+
 }  // namespace
 
 extern "C" {
@@ -113,6 +205,37 @@ int swt_ntt_reduce(const int32_t* c, int64_t c_rs, int32_t* out, int64_t B,
   K.n0 = n0;
   const unsigned grid = static_cast<unsigned>((B + kThreads - 1) / kThreads);
   ntt_reduce_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(c, c_rs, out, B, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, out: dense [16, B, 2^log_n] int32, 0 <= log_n <= 30, out not aliasing x.
+int swt_ntt_bitrev(const int32_t* x, int32_t* out, int64_t B, int log_n, void* stream) {
+  if (log_n < 0 || log_n > kMaxLog || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  const int64_t total = B << log_n;
+  const dim3 grid(swt::grid_for(total, kThreads), kLimbs);
+  ntt_bitrev_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, out, B, log_n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stage log_h (0 <= log_h < log_n <= 30) in place over the dense
+// [16, B, 2^log_n] x, with the dense [16, 2^(log_n - 1)] twiddle table tw.
+// `p`, `one`: the 8 32-bit words of p and of R mod p; `scale`: NULL, or the
+// 8 Montgomery words both outputs are multiplied by.
+int swt_ntt_butterfly(int32_t* x, int64_t B, int log_n, int log_h, const int32_t* tw,
+                      const uint32_t* p, uint32_t n0, const uint32_t* one, const uint32_t* scale,
+                      void* stream) {
+  if (log_n < 1 || log_n > kMaxLog || log_h < 0 || log_h >= log_n || B < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B == 0) return 0;
+  Scale S{};
+  S.on = scale != nullptr;
+  for (int k = 0; k < kWords; ++k) S.w[k] = scale ? scale[k] : 0u;
+  const int64_t butterflies = (B << log_n) / 2;
+  ntt_butterfly_kernel<<<swt::grid_for(butterflies, kThreads), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      x, B, log_n, log_h, tw, swt::make_modulus<kWords>(p, n0, one), S);
   return static_cast<int>(cudaGetLastError());
 }
 

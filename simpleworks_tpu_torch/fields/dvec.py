@@ -11,15 +11,19 @@ Sequential-looking polynomial ops are log-depth device programs:
 divide-by-linear is a powers build, two multiplies and a log-step suffix
 scan of modular adds; divide-by-vanishing is the same scan with a stride of
 one block; evaluation is a powers build, a multiply and a halving tree of
-modular adds.  The transforms (``fft``/``ifft``) run the NTT of
-:mod:`simpleworks_tpu_torch.ops.ntt` on the vector's device, or the sharded
-4-step NTT over the prover's devices when :mod:`..ops.accel` routes them
-there.
+modular adds.  The transforms (``fft``/``ifft``) take the reference's
+route off a TPU: the radix-2 butterfly NTT of
+:mod:`simpleworks_tpu_torch.poly.ntt_device` on the vector's device (its
+CUDA kernels on the card, raising if they fail, never another route), or the
+sharded 4-step NTT over the prover's devices when :mod:`..ops.accel` routes
+them there.  The limb-matmul NTT of :mod:`..ops.ntt` (the reference's MXU
+route, which it runs only on a TPU) is not on these routes.
 
 A CPU tensor takes the host native runtime (:mod:`..native`) when it is
 available: the elementwise ops, the inverse, the powers, division by
 (X − z), evaluation and the transforms each become one native call over the
-tensor's words (equal values; ``SWTPU_NATIVE=0`` keeps the plain versions).
+tensor's words (equal values; ``SWTPU_NATIVE=0`` keeps the plain versions,
+the butterfly's for the transforms).
 A CUDA tensor never takes the native runtime.
 """
 
@@ -34,8 +38,8 @@ from .. import native
 from ..errors import ensure
 from ..ops import accel
 from ..ops.mont_mul import FR, mod_add, mod_sub, mont_mul, mont_pow
-from ..ops.ntt import get_ntt
 from ..device import resolve
+from ..poly.ntt_device import get_device_ntt
 from .bls12_377 import FR_MODULUS, fr_root_of_unity
 from .device import from_mont, limbs_to_ints, mont_scalar, to_mont
 
@@ -270,7 +274,7 @@ def fft(a: torch.Tensor, n: int) -> torch.Tensor:
         return ntt_sharded.sharded_transform(devices, pad_to(a, n))
     if host_native(a):
         return _limbs(native.fr_ntt_arr(_words(pad_to(a, n)), fr_root_of_unity(n)))
-    return get_ntt(n, a.device).fft_mont(pad_to(a, n))
+    return get_device_ntt(n, a.device).fft_mont(pad_to(a, n))
 
 
 def ifft(a: torch.Tensor, n: int) -> torch.Tensor:
@@ -284,7 +288,7 @@ def ifft(a: torch.Tensor, n: int) -> torch.Tensor:
     if host_native(a):
         omega_inv = pow(fr_root_of_unity(n), P - 2, P)
         return _limbs(native.fr_ntt_arr(_words(a), omega_inv, scale=pow(n, P - 2, P)))
-    return get_ntt(n, a.device).ifft_mont(a)
+    return get_device_ntt(n, a.device).ifft_mont(a)
 
 
 # ------------------------------------------------------------ host bridge ----

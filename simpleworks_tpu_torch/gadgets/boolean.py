@@ -41,9 +41,10 @@ class Boolean:
             var = cs.new_witness_variable(v)
         else:
             var = cs.new_input_variable(v)
-        # booleanity: (1 - a) * a = 0
-        one_minus_a = cs.lc((1, ONE)) - cs.lc((1, var))
-        cs.enforce_constraint(one_minus_a, cs.lc((1, var)), cs.lc())
+        # booleanity: (1 - a) * a = 0 (var is a new variable, never ONE)
+        one_minus_a = LinearCombination(cs.field, {ONE: 1, var: cs.field.PARAMS.modulus - 1})
+        cs.enforce_constraint(one_minus_a, LinearCombination(cs.field, {var: 1}),
+                              LinearCombination(cs.field))
         return Boolean(cs, "is", variable=var, value=bool(value))
 
     @staticmethod
@@ -75,9 +76,14 @@ class Boolean:
             if field is None:
                 raise ValueError("constant Boolean with no cs context has no LC")
             return LinearCombination.from_terms(field, [(1, ONE)] if self.const_value else [])
+        # the terms cs.lc((1, v)) and cs.lc((1, ONE)) - cs.lc((1, v)) give,
+        # built directly (a synthesis makes millions of these)
         if self.kind == "is":
-            return self.cs.lc((1, self.variable))
-        return self.cs.lc((1, ONE)) - self.cs.lc((1, self.variable))
+            return LinearCombination(cs.field, {self.variable: 1})
+        if self.variable != ONE:
+            minus_one = cs.field.PARAMS.modulus - 1
+            return LinearCombination(cs.field, {ONE: 1, self.variable: minus_one})
+        return cs.lc((1, ONE)) - cs.lc((1, self.variable))
 
     def _cs_of(self, other: "Boolean"):
         return self.cs if self.cs is not None else other.cs
@@ -117,9 +123,12 @@ class Boolean:
             return self if not other.const_value else self.not_()
         out_val = self._value != other._value
         out = Boolean._alloc_unchecked(cs, out_val)
-        # 2a * b = a + b - c
-        two_a = self.lc() + self.lc()
-        rhs = self.lc() + other.lc() - out.lc()
+        # 2a * b = a + b - c (the terms and order of lc + lc and of
+        # lc + lc - lc, summed in place)
+        two_a = self.lc() * 2
+        rhs = self.lc()
+        rhs.accumulate(other.lc())
+        rhs.accumulate(out.lc(), -1)
         cs.enforce_constraint(two_a, other.lc(), rhs)
         return out
 

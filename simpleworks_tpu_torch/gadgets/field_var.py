@@ -162,7 +162,7 @@ class FieldVar:
         for i in range(n):
             b = Boolean.new_witness(cs, (v >> i) & 1 == 1)
             bits.append(b)
-            recompose = recompose + b.lc() * pow(2, i, p)
+            recompose.accumulate(b.lc(), pow(2, i, p))
         cs.enforce_constraint(recompose - self.lc, cs.lc((1, ONE)), cs.lc())
         return bits
 

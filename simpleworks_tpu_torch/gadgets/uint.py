@@ -281,15 +281,16 @@ class UIntGadget:
             for j in range(n_carry_bits)
         ]
         p = cs.field.PARAMS.modulus
+        pows = [pow(2, k, p) for k in range(w + n_carry_bits)]
         lhs = cs.lc()
         for op in operands:
             for i, bit in enumerate(op.bits):
-                lhs = lhs + bit.lc() * pow(2, i, p)
+                lhs.accumulate(bit.lc(), pows[i])
         rhs = cs.lc()
         for i, bit in enumerate(result.bits):
-            rhs = rhs + bit.lc() * pow(2, i, p)
+            rhs.accumulate(bit.lc(), pows[i])
         for j, bit in enumerate(carry_bits):
-            rhs = rhs + bit.lc() * pow(2, w + j, p)
+            rhs.accumulate(bit.lc(), pows[w + j])
         cs.enforce_constraint(lhs - rhs, cs.lc((1, ONE)), cs.lc())
         return result
 

@@ -25,6 +25,12 @@ base DFT of size ≤ 256 (its matrix carries the 1/N of the inverse).
 
 Natural order in and out; no bit reversal.  Outputs equal the reference's
 value for value.
+
+No path of the port runs it: the JAX package runs this NTT only on a TPU,
+and the port's transforms (``dvec.fft``/``ifft``, the sharded plane) take
+the route it takes elsewhere, the butterfly of :mod:`..poly.ntt_device`.
+It stays as the port of ``ntt_mxu.py``, held by its tests and
+``chip_smoke.check_ntt``.
 """
 
 from __future__ import annotations

@@ -6,8 +6,8 @@ n = n1·n2 (n1 = 2^⌊log2(n)/2⌋) views the natural-order input as a row-major
 
 1. column transforms of size n1: device d holds columns
    [d·n2/D, (d+1)·n2/D), each a vector of n1, and transforms them as one
-   batch (``LimbMatmulNTT.fft_mont_batch``: the tables shared, no Python
-   loop over columns);
+   batch (the butterfly NTT's ``DeviceNTT.fft_mont_batch``, the reference's
+   ``_batched_stage_transform``: one launch a stage over all the columns);
 2. twiddle: Y[k1, j2] · ω_n^(k1·j2) (``dvec.mul``; each shard's table built
    once on its device);
 3. transpose: device e gathers rows [e·n1/D, (e+1)·n1/D) of every shard's
@@ -25,8 +25,9 @@ own shards only, and an ``all_gather`` after step 2 (every rank's twiddled
 columns, for its transpose) and after step 4 (every rank's rows) gives each
 rank the whole value.
 
-Departure from the reference: the inverse carries the 1/n scale (each
-stage's inverse tables fold in 1/n1 and 1/n2), so ``inverse=True`` is
+Departure from the reference: the inverse carries the 1/n scale (the
+inverse column and row transforms scale by 1/n1 and 1/n2 on their last
+stages), so ``inverse=True`` is
 ``dvec.ifft``; the reference leaves the scale to its caller.  The shards
 of one process run one after another from one thread (the card queues each
 launch, so shards on distinct cards overlap where no host fetch intervenes).
@@ -42,7 +43,8 @@ from ..device import resolve
 from ..fields import dvec
 from ..fields.bls12_377 import FR_MODULUS, fr_root_of_unity
 from ..fields.frvec import FrVec
-from ..ops.ntt import _row_powers, get_ntt
+from ..ops.ntt import _row_powers
+from ..poly.ntt_device import get_device_ntt
 from . import multihost
 
 P = FR_MODULUS
@@ -107,7 +109,7 @@ def sharded_transform(devices, x: torch.Tensor, inverse: bool = False) -> torch.
             twiddled.append(None)
             continue
         cols = cols.permute(0, 2, 1).contiguous()  # [16, w, n1]
-        ntt = get_ntt(n1, dev)
+        ntt = get_device_ntt(n1, dev)
         y = ntt.ifft_mont_batch(cols) if inverse else ntt.fft_mont_batch(cols)
         tw = _twiddles(n, inverse, shards, d, dev)
         twiddled.append(dvec.mul(y.reshape(L, -1), tw.reshape(L, -1)).reshape(L, w, n1))
@@ -119,7 +121,7 @@ def sharded_transform(devices, x: torch.Tensor, inverse: bool = False) -> torch.
             continue
         rows = torch.cat([y[:, :, e * h:(e + 1) * h].to(dev) for y in twiddled], dim=1)
         rows = rows.permute(0, 2, 1).contiguous()  # [16, h, n2]
-        ntt = get_ntt(n2, dev)
+        ntt = get_device_ntt(n2, dev)
         z = ntt.ifft_mont_batch(rows) if inverse else ntt.fft_mont_batch(rows)
         out.append(z)
     c = torch.cat([z.to(x.device) for z in multihost.fetch_global(out)], dim=1)  # C[k1, k2]

@@ -2,10 +2,12 @@
 
 Port of ``simpleworks_tpu/poly/domain.py``.  The vector transforms take an
 :class:`~simpleworks_tpu_torch.fields.frvec.FrVec` and run through
-``dvec.fft``/``ifft``: the NTT of :mod:`simpleworks_tpu_torch.ops.ntt` on its
-device, or the sharded 4-step NTT when :mod:`..ops.accel` routes a transform
-there; a CPU vector's transform takes the native runtime's NTT (the
-reference's native route of ``_transform_vec``).  :func:`ntt_host`, ``fft`` and ``ifft`` are the pure-Python oracle
+``dvec.fft``/``ifft``, so they follow the reference's ``_transform_vec``
+off a TPU: the radix-2 butterfly NTT of
+:mod:`simpleworks_tpu_torch.poly.ntt_device` on its device (the reference's
+XLA butterfly), or the sharded 4-step NTT when :mod:`..ops.accel` routes a
+transform there; a CPU vector's transform takes the native runtime's NTT
+(the reference's native route).  :func:`ntt_host`, ``fft`` and ``ifft`` are the pure-Python oracle
 (and the verifier's small transforms); the other list methods
 (``coset_fft``, ``coset_ifft``, ``divide_by_vanishing``,
 ``lagrange_coeffs_at``) run the vector forms on ``device`` (the card by

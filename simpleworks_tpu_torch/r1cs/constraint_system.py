@@ -54,18 +54,27 @@ class LinearCombination:
                     del terms[var]
         return cls(field_cls, terms)
 
-    def _combine(self, other, sign: int):
+    def accumulate(self, other, scale: int = 1) -> None:
+        """self += scale·other, in place: the update ``+`` and ``-`` make on
+        a copy, and ``self + other * scale`` for a scale that is not 0 mod p
+        (the same terms in the same order).  A sum of many terms built this
+        way costs one update a term, where ``lc = lc + term`` copies the
+        growing dict every time."""
         if isinstance(other, Variable):
             other = LinearCombination.from_terms(self.field, [(1, other)])
-        out = dict(self.terms)
+        out = self.terms
         p = self.field.PARAMS.modulus
         for var, c in other.terms.items():
-            nc = (out.get(var, 0) + sign * c) % p
+            nc = (out.get(var, 0) + scale * c) % p
             if nc:
                 out[var] = nc
             elif var in out:
                 del out[var]
-        return LinearCombination(self.field, out)
+
+    def _combine(self, other, sign: int):
+        out = LinearCombination(self.field, dict(self.terms))
+        out.accumulate(other, sign)
+        return out
 
     def __add__(self, other):
         return self._combine(other, 1)
@@ -147,6 +156,10 @@ class ConstraintSystem:
 
     def lc(self, *pairs) -> LinearCombination:
         """Build an LC from (coeff, Variable) pairs; ``cs.lc()`` == ``lc!()``."""
+        if len(pairs) == 1:  # the common case, without from_terms' loop
+            coeff, var = pairs[0]
+            c = int(coeff) % self.field.PARAMS.modulus
+            return LinearCombination(self.field, {var: c} if c else None)
         return LinearCombination.from_terms(self.field, pairs)
 
     def enforce_constraint(

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (the field kernels, the NTT's reduce kernel, the
-fused G1 point add, the MSM's bucket accumulate and its bucket combine)
-against their plain PyTorch versions, on the card (exact equality: field
-arithmetic is exact).
+butterfly NTT's bit reversal and stage, the fused G1 point add, the MSM's
+bucket accumulate and its bucket combine) against their plain PyTorch
+versions, on the card (exact equality: field arithmetic is exact).
 
 Skips without a CUDA device.  On a machine with one:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
@@ -182,6 +182,35 @@ def test_ntt_matches_host_oracle(cuda):
         y = dvec.fft(x, n)
         assert dvec.to_ints(y) == ntt_host(dvec.to_ints(x), fr_root_of_unity(n))
         assert torch.equal(dvec.ifft(y, n), x)
+
+
+@pytest.mark.parametrize("batch, log_n", [(1, 12), (5, 9)])
+def test_ntt_butterfly_kernels_match_plain(cuda, batch, log_n):
+    """The bit reversal and every butterfly stage (forward and inverse
+    tables, with and without the last stage's scale) against their plain
+    versions on the card, one launch counted per call; the whole batched
+    transform against the CPU's."""
+    from simpleworks_tpu_torch.ops import ntt_butterfly as bf
+    from simpleworks_tpu_torch.poly.ntt_device import get_device_ntt
+
+    n = 1 << log_n
+    x = rand_field(FR, batch * n, 12, cuda).reshape(16, batch, n)
+    before = dict(mm.LAUNCHES)
+    y = bf.ntt_bitrev(x)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["ntt_bitrev"] == before["ntt_bitrev"] + 1
+    assert torch.equal(y, bf.ntt_bitrev_plain(x))
+    ntt = get_device_ntt(n, cuda)
+    for stage in range(log_n):
+        for table, scale in ((ntt.twiddles_fwd, None), (ntt.twiddles_inv, ntt.n_inv)):
+            got, want = y.clone(), y.clone()
+            bf.ntt_butterfly(got, stage, table, scale)
+            torch.cuda.synchronize()
+            assert torch.equal(got, bf.ntt_butterfly_plain(want, stage, table, scale)), stage
+    assert mm.LAUNCHES["ntt_butterfly"] == before["ntt_butterfly"] + 2 * log_n
+    cpu = get_device_ntt(n, torch.device("cpu"))
+    assert torch.equal(ntt.fft_mont_batch(x).cpu(), cpu.fft_mont_batch(x.cpu()))
+    assert torch.equal(ntt.ifft_mont_batch(x).cpu(), cpu.ifft_mont_batch(x.cpu()))
 
 
 def fused_cases(ins):
