@@ -24,15 +24,18 @@ printed as one JSON line, any failure raising:
    point law;
 5. the NTTs: the limb matmul's reduce kernel (ops/ntt.py, the TPU's route,
    which no path runs) against its plain version on the real first-level
-   planes of a seed-made 2^20-point transform (exact); the butterfly NTT's
-   bit-reversal and stage kernels (poly/ntt_device.py, the route of every
-   transform of the paths) against their plain versions, stage by stage,
-   exactly, at 2^20 forward and inverse and on the sharded path's column
-   and row batches; the butterfly against the pure-Python ntt_host at 2^12
-   and against the limb matmul at 2^20 both ways; the round trip
-   ifft(fft(x)) == x at 2^20 through dvec, which must launch the
-   butterfly's kernels and not the reduce; both NTTs' fft and ifft timed at
-   2^17, 2^19 and 2^20 beside their tables' seconds;
+   planes of a seed-made 2^20-point transform (exact); the butterfly NTT
+   (poly/ntt_device.py, the route of every transform of the paths): its
+   pass kernel against its plain passes and against the stage route, whose
+   bit-reversal and stage kernels (no path runs them) are held against
+   their plain versions stage by stage, exactly, at 2^20 forward and
+   inverse and on the sharded path's column and row batches, the pass
+   kernel timed beside the stage route in the same call; the butterfly
+   against the pure-Python ntt_host at 2^12 and against the limb matmul at
+   2^20 both ways; the round trip ifft(fft(x)) == x at 2^20 through dvec,
+   which must launch the pass kernel (two passes a transform) and no other
+   NTT kernel; both NTTs' fft and ifft timed at 2^17, 2^19 and 2^20 beside
+   their tables' seconds;
    then DeviceField (fields/device.py) on [L, 2^16] Fr and Fq lanes, each op
    against the plain version of its kernel and host integers, and
    curves/g1_device.py: the fixed-base ladder for 256 scalars at 253 bits
@@ -121,7 +124,8 @@ printed as one JSON line, any failure raising:
     CPU path is the one the tests hold against the JAX package);
 18. the kernels line: each kernel's launches on each path (the counts set to
     0 before the path and read after it; every kernel a path runs must have
-    launched there, and the limb matmul's reduce on none), its largest error
+    launched there, and the limb matmul's reduce and the stage route's
+    kernels on none), its largest error
     against the plain version, its time, the plain version's, and the least
     time the card could take (bound_ms).
 
@@ -268,7 +272,7 @@ NTT_SOURCE = "simpleworks_tpu_torch/csrc/ntt_kernels.cu"
 G1_SOURCE = "simpleworks_tpu_torch/csrc/g1_kernels.cu"
 SOURCES = {"mont_mul": FIELD_SOURCE, "mod_add": FIELD_SOURCE, "mod_sub": FIELD_SOURCE,
            "mont_pow": FIELD_SOURCE, "ntt_reduce": NTT_SOURCE, "ntt_bitrev": NTT_SOURCE,
-           "ntt_butterfly": NTT_SOURCE,
+           "ntt_butterfly": NTT_SOURCE, "ntt_pass": NTT_SOURCE,
            "g1_fused_add": G1_SOURCE, "g1_fused_madd": G1_SOURCE,
            "g1_bucket_combine": G1_SOURCE}
 REPLACES = {
@@ -281,6 +285,8 @@ REPLACES = {
     # its gather by the bit-reversed indices and its radix-2 stage
     "ntt_bitrev": "simpleworks_tpu/poly/ntt_device.py:81",
     "ntt_butterfly": "simpleworks_tpu/poly/ntt_device.py:82",
+    # the whole transform of ntt_device.py:81-90 (bit reversal, stages, 1/n)
+    "ntt_pass": "simpleworks_tpu/poly/ntt_device.py:81",
     "g1_fused_add": "simpleworks_tpu/ops/g1_fused_pallas.py:112",
     "g1_fused_madd": "simpleworks_tpu/ops/g1_fused_pallas.py:255",
     # the add kernel, run by the fold and the two suffix passes of
@@ -289,11 +295,13 @@ REPLACES = {
 }
 #: the kernels that compute in the field alone (check_kernels)
 FIELD_KERNELS = ("mont_mul", "mod_add", "mod_sub", "mont_pow")
-#: the butterfly NTT's kernels: every transform of the prover's paths
-BUTTERFLY_KERNELS = ("ntt_bitrev", "ntt_butterfly")
+#: the butterfly NTT's kernels: the pass kernel (every transform of the
+#: prover's paths) and the stage route's two, its baseline
+BUTTERFLY_KERNELS = ("ntt_bitrev", "ntt_butterfly", "ntt_pass")
 #: kernels held by check_ntt that no path runs: the limb-matmul NTT's reduce
-#: (the reference's MXU route, which it runs only on a TPU)
-OFF_PATH = ("ntt_reduce",)
+#: (the reference's MXU route, which it runs only on a TPU) and the stage
+#: route's bit reversal and stage (the pass kernel's baseline, timed beside it)
+OFF_PATH = ("ntt_reduce", "ntt_bitrev", "ntt_butterfly")
 #: Fq multiplies of one lane of each point add (or of one valid cell of the
 #: accumulate, or of one lane of a combine step that runs the add): the
 #: general formula, and the doubling that only the lanes needing it run
@@ -747,14 +755,18 @@ def check_ntt(device, log_n: int = NTT_LOG, oracle_log: int = ORACLE_LOG,
     """The two NTTs on the card.  The limb matmul (ops/ntt.py, the TPU's
     route, which no path runs): its reduce kernel against its plain version
     on real first-level planes (exact).  The butterfly (poly/ntt_device.py,
-    the route of dvec.fft/ifft and of the sharded plane): its bit-reversal
-    and stage kernels against their plain versions, exactly, each stage on
-    the input its plain version gets, at 2^log_n forward and inverse and on
-    the sharded plane's column and row batches of a 2^sharded_log transform;
-    its fft against the pure-Python ntt_host at 2^oracle_log; the two NTTs
-    equal at 2^log_n both ways; dvec's round trip at 2^log_n, which must run
-    the butterfly's kernels and not the limb matmul's; and both NTTs' fft
-    and ifft timed at 2^timed_logs beside the seconds their tables took."""
+    the route of dvec.fft/ifft and of the sharded plane): the pass kernel
+    against its plain passes and against the stage route (whose bit-reversal
+    and stage kernels, which no path runs, are held against their plain
+    versions, each stage on the input its plain version gets), exactly, at
+    2^log_n forward and inverse and on the sharded plane's column and row
+    batches of a 2^sharded_log transform, the pass kernel timed beside the
+    stage route and required to be faster on the card; its fft against the
+    pure-Python ntt_host at 2^oracle_log; the two NTTs equal at 2^log_n both
+    ways; dvec's round trip at 2^log_n, which must launch the pass kernel
+    its plan's passes a transform and no other NTT kernel; and both NTTs'
+    fft and ifft timed at 2^timed_logs beside the seconds their tables
+    took."""
     import torch
 
     from simpleworks_tpu_torch.fields import dvec
@@ -798,15 +810,20 @@ def check_ntt(device, log_n: int = NTT_LOG, oracle_log: int = ORACLE_LOG,
     del planes, got, ref
 
     def check_kernels_on(x3, inverse: bool):
-        """Both butterfly kernels on the batch x3 [16, B, m] against their
-        plain versions -> (bit-reversal row, stages row, the transform)."""
+        """The pass kernel and the stage route's two kernels on the batch x3
+        [16, B, m] against their plain versions (the stage route's each
+        stage on the input its plain version gets), and the pass kernel
+        against the stage route -> (bit-reversal row, stages row, pass row,
+        the pass kernel's transform)."""
         m = x3.shape[2]
         stages = m.bit_length() - 1
         tr = transform("butterfly", m)
         table = tr.twiddles_inv if inverse else tr.twiddles_fwd
+        tables = tr.tables[inverse]
+        factor = tr.n_inv if inverse else None
 
         def scale(s):
-            return tr.n_inv if inverse and s == stages - 1 else None
+            return factor if s == stages - 1 else None
 
         def run_stages(stage_fn, z):
             for s in range(stages):
@@ -836,31 +853,56 @@ def check_ntt(device, log_n: int = NTT_LOG, oracle_log: int = ORACLE_LOG,
                                  queue_ahead=True),
                    "plain_ms": time_ms(lambda: run_stages(bf.ntt_butterfly_plain, scratch),
                                        device, reps=3)}
-        for name, row in (("ntt_bitrev", rev_row), ("ntt_butterfly", fly_row)):
+        del scratch
+        got, want = bf.ntt_transform(x3, tables, factor), bf.ntt_passes_plain(x3, tables, factor)
+        sync(device)
+        plan = bf.pass_plan(stages, x3.shape[1])
+        pass_row = {"shape": list(x3.shape), "inverse": inverse, "stages": stages,
+                    "passes": len(plan), "plan": [list(step) for step in plan],
+                    "equal": bool(torch.equal(got, want)), "max_abs_err": max_err(got, want),
+                    "stage_route_equal": bool(torch.equal(got, y)),
+                    "stage_route_max_abs_err": max_err(got, y),
+                    "ms": time_ms(lambda: bf.ntt_transform(x3, tables, factor), device, inner=10,
+                                  queue_ahead=True),
+                    "plain_ms": time_ms(lambda: bf.ntt_passes_plain(x3, tables, factor), device,
+                                        reps=3),
+                    # the stage route in the same call: its bit reversal and stages
+                    "stage_route_ms": rev_row["ms"] + fly_row["ms"], **resources}
+        for name, row in (("ntt_bitrev", rev_row), ("ntt_butterfly", fly_row), ("ntt_pass", pass_row)):
             if not row["equal"]:
                 raise AssertionError(f"{name} kernel disagrees with its plain version at "
                                      f"{row['shape']} (inverse={inverse})")
-        return rev_row, fly_row, y
+        if not pass_row["stage_route_equal"]:
+            raise AssertionError(f"the pass kernel and the stage route differ at {pass_row['shape']} "
+                                 f"(inverse={inverse})")
+        if device.type == "cuda" and pass_row["ms"] >= pass_row["stage_route_ms"]:
+            raise AssertionError(f"the pass kernel is not faster than the stage route at "
+                                 f"{pass_row['shape']}: {pass_row['ms']} ms against "
+                                 f"{pass_row['stage_route_ms']} ms")
+        return rev_row, fly_row, pass_row, got
 
+    resources = bf.kernel_resources() if device.type == "cuda" else {}
     # the sharded plane's batches: columns [16, n2/shards, n1], rows
     # [16, n1/shards, n2]; then 2^log_n, the forward transform last (the
     # kernels line's row)
     n1, n2 = _split(1 << sharded_log)
     batches = [(n2 // shards, n1), (n1 // shards, n2)]
-    bitrev_rows, butterfly_rows = [], []
+    bitrev_rows, butterfly_rows, pass_rows = [], [], []
     for k, (b, m) in enumerate(batches):
         xb = random_poly(b * m, 20 + k, device).reshape(16, b, m)
         for inverse in (False, True):
-            rev_row, fly_row, _ = check_kernels_on(xb, inverse)
+            rev_row, fly_row, pass_row, _ = check_kernels_on(xb, inverse)
             bitrev_rows.append(rev_row)
             butterfly_rows.append(fly_row)
+            pass_rows.append(pass_row)
     transformed = {}
     for inverse in (True, False):
-        rev_row, fly_row, transformed[inverse] = check_kernels_on(x[:, None, :], inverse)
+        rev_row, fly_row, pass_row, transformed[inverse] = check_kernels_on(x[:, None, :], inverse)
         bitrev_rows.append(rev_row)
         butterfly_rows.append(fly_row)
+        pass_rows.append(pass_row)
 
-    # the two NTTs agree; dvec's transforms run the butterfly's kernels
+    # the two NTTs agree; dvec's transforms run the pass kernel alone
     fly = transform("butterfly", n)
     for inverse, run_fly, run_limb in ((False, fly.fft_mont, limb.fft_mont),
                                        (True, fly.ifft_mont, limb.ifft_mont)):
@@ -874,11 +916,13 @@ def check_ntt(device, log_n: int = NTT_LOG, oracle_log: int = ORACLE_LOG,
     back = dvec.ifft(y, n)
     sync(device)
     dvec_launches = {k: _build.LAUNCHES[k] - before[k]
-                     for k in ("ntt_bitrev", "ntt_butterfly", "ntt_reduce")}
+                     for k in ("ntt_pass", "ntt_bitrev", "ntt_butterfly", "ntt_reduce")}
     on_card = device.type == "cuda"  # a CPU tensor's plain route launches nothing
-    if dvec_launches != {"ntt_bitrev": 2 * on_card, "ntt_butterfly": 2 * log_n * on_card,
+    passes = len(bf.pass_plan(log_n, 1))
+    if dvec_launches != {"ntt_pass": 2 * passes * on_card, "ntt_bitrev": 0, "ntt_butterfly": 0,
                          "ntt_reduce": 0}:
-        raise AssertionError(f"dvec's transforms did not run the butterfly alone: {dvec_launches}")
+        raise AssertionError(f"dvec's transforms did not run the pass kernel alone, "
+                             f"{passes} launches a transform: {dvec_launches}")
     if not torch.equal(back, x):
         raise AssertionError(f"ifft(fft(x)) != x at 2^{log_n}")
     del y, back
@@ -905,6 +949,7 @@ def check_ntt(device, log_n: int = NTT_LOG, oracle_log: int = ORACLE_LOG,
         timings.append(row)
     ntt.get_ntt.cache_clear()  # no path runs the limb matmul: free its tables
     return {"reduce": reduce_row, "bitrev": bitrev_rows, "butterfly": butterfly_rows,
+            "pass": pass_rows, "pass_kernel_resources": resources,
             "sharded_batches": [[16, b, m] for b, m in batches], "limb_matmul_equal": True,
             "roundtrip_log_n": log_n, "dvec_launches": dvec_launches,
             "oracle_log_n": oracle_log, "oracle_equal": True, "timings": timings}
@@ -1143,7 +1188,7 @@ def run_pin(device, steps: int = PIN_STEPS, sizes=PIN_SRS_SIZES) -> dict:
             launches = dict(_build.LAUNCHES)
     if out["cuda"] != out["cpu"]:
         raise AssertionError("proof bytes differ between the card and the CPU")
-    if not all(launches[k] for k in ("mont_mul", "ntt_butterfly", "g1_fused_madd")):
+    if not all(launches[k] for k in ("mont_mul", "ntt_pass", "g1_fused_madd")):
         raise AssertionError(f"the pin's card side did not run on the card: {launches}")
     return {"steps": steps, "srs_sizes": list(sizes), "proof_bytes": len(out["cuda"]),
             "equal_bytes": True, "card_launches": launches}
@@ -1456,7 +1501,8 @@ def profile_prove(device, sizes=SRS_SIZES, top: int = 15) -> dict:
     """One warm prove of the Marlin path under torch.profiler: the device's
     busy time (the sum of its kernel, copy and fill intervals, which one
     stream runs one at a time) against the prove's wall time, the busiest
-    device names, and the host's kernel-launch calls."""
+    device names, the host's kernel-launch calls, and the NTT kernels'
+    launches and card time."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -1487,8 +1533,16 @@ def profile_prove(device, sizes=SRS_SIZES, top: int = 15) -> dict:
     if busy_s <= 0:
         raise AssertionError("the profiler saw no device time in the prove")
     ranked = sorted(busy_us, key=busy_us.get, reverse=True)[:top]
+    # the NTT's kernels: the pass kernel, and the stage route's (none expected)
+    ntt = {}
+    for kernel in ("ntt_pass_kernel", "ntt_butterfly_kernel", "ntt_bitrev_kernel"):
+        names = [k for k in busy_us if kernel in k]
+        ntt[kernel] = {"launches": sum(count[k] for k in names),
+                       "s": sum(busy_us[k] for k in names) / 1e6}
     return {"wall_s": wall_s, "device_busy_s": busy_s, "busy_share": busy_s / wall_s,
-            "host_launch_calls": launches,
+            "host_launch_calls": launches, "ntt": ntt,
+            "ntt_launches": sum(v["launches"] for v in ntt.values()),
+            "ntt_card_s": sum(v["s"] for v in ntt.values()),
             "top": [{"name": k[:80], "s": busy_us[k] / 1e6, "count": count[k]} for k in ranked]}
 
 
@@ -1545,16 +1599,16 @@ def bound_ms(name: str, shape, clock_mhz: float, exponent: int | None = None,
 def butterfly_bound_ms(name: str, row: dict, clock_mhz: float) -> tuple[float, str]:
     """The least time the card could take for the butterfly NTT's kernels on
     ``row``'s [16, B, n] batch (check_ntt): the bit reversal moves each
-    64-byte element in once and out once; the stages (all log2 n of them,
-    the row's work) read the input once, write the output once and read
-    the n/2-entry twiddle table once, and run (n/2)·log2(n)·B Montgomery
-    products (n·B more on the inverse's scaled last stage), each 2 x 8^2
-    multiply-adds."""
+    64-byte element in once and out once; the whole transform (the pass
+    kernel's work, and the stage route's all log2 n stages) reads the input
+    once and writes the output once (the stages also read their n/2-entry
+    twiddle table once) and runs (n/2)·log2(n)·B Montgomery products, n·B
+    more on the inverse (its 1/n), each 2 x 8^2 multiply-adds."""
     _, batch, n = row["shape"]
     nbytes = 2 * 64 * batch * n
     ops = 0
-    if name == "ntt_butterfly":
-        nbytes += 64 * (n // 2)
+    if name in ("ntt_butterfly", "ntt_pass"):
+        nbytes += 64 * (n // 2) if name == "ntt_butterfly" else 0
         products = (n // 2) * row["stages"] * batch + (n * batch if row["inverse"] else 0)
         ops = 2 * 8 * 8 * products
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1916,7 +1970,7 @@ def run_serde(device) -> dict:
         raise AssertionError("the proving key read back proves other bytes")
     if pk.device != device or pk2.device != device:
         raise AssertionError(f"the serde's keys live on {pk.device} and {pk2.device}, not {device}")
-    if device.type == "cuda" and not all(launches[k] for k in ("mont_mul", "ntt_butterfly",
+    if device.type == "cuda" and not all(launches[k] for k in ("mont_mul", "ntt_pass",
                                                                 "g1_fused_madd")):
         raise AssertionError(f"the key read back did not prove on the card: {launches}")
     return {"sizes": list(SERDE_SRS_SIZES), "powers": srs.num_powers, "bytes": len(blob),
@@ -2028,7 +2082,7 @@ def run_small_prove(device, sizes=SMALL_PROVE_SRS_SIZES, circuit=SMALL_PROVE_CIR
     if any(launches["cpu"].values()):
         raise AssertionError(f"the CPU's prove launched kernels: {launches['cpu']}")
     if device.type == "cuda" and not all(launches[device.type][k] for k in (
-            "mont_mul", "ntt_butterfly", "g1_fused_madd")):
+            "mont_mul", "ntt_pass", "g1_fused_madd")):
         raise AssertionError(f"the card's prove did not launch its kernels: {launches}")
     return {"sizes": list(sizes), "n": vk.info.domain_h_size, "m": vk.info.domain_k_size,
             "card_launches": launches[device.type], "equal_bytes": True, "steps": steps,
@@ -2184,6 +2238,7 @@ def main(argv: list[str]) -> int:
     checks["ntt_reduce"] = [ntt_checks["reduce"]]
     checks["ntt_bitrev"] = ntt_checks["bitrev"]
     checks["ntt_butterfly"] = ntt_checks["butterfly"]
+    checks["ntt_pass"] = ntt_checks["pass"]
     emit({"device_field_checks": check_device_field(device)})
     emit({"g1_device_checks": check_g1_device(device)})
 
@@ -2237,7 +2292,7 @@ def main(argv: list[str]) -> int:
     # the MSM path runs no setup (the SRS is the KZG path's memo)
     msm = ["g1_fused_madd", "g1_bucket_combine"]
     kzg = ["mont_mul", "mont_pow", "g1_fused_add", *msm]
-    prover = [*FIELD_KERNELS, *BUTTERFLY_KERNELS, "g1_fused_add", *msm]
+    prover = [*FIELD_KERNELS, "ntt_pass", "g1_fused_add", *msm]
     paths = {}
     paths["kzg"] = drive_counting_pow("KZG", kzg, lambda: run_slice(device))
     emit({"kzg_slice": paths["kzg"]})
@@ -2338,8 +2393,8 @@ def main(argv: list[str]) -> int:
             "launches_by_path": by_path,
             "shapes": [{k: r[k] for k in ("shape", "depth", "windows", "segments", "buckets", "ms",
                                           "plain_ms", "plain_shape", "checked_lanes", "route_ms",
-                                          "inverse", "stages", "library_ms", "bound_ms",
-                                          "registers", "local_bytes")
+                                          "inverse", "stages", "passes", "stage_route_ms",
+                                          "library_ms", "bound_ms", "registers", "local_bytes")
                         if k in r}
                        for r in rows],
         })

@@ -64,6 +64,9 @@ SIGNATURES = {
         "swt_ntt_bitrev": [_P, _P, _I64, ctypes.c_int, _P],
         "swt_ntt_butterfly": [_P, _I64, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_uint32, _P,
                               _P, _P],
+        "swt_ntt_transform": [_P, _P, _P, _I64, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
+                              _P, _P, ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _P],
+        "swt_ntt_kernel_resources": [_P],
     },
     "g1_kernels": {
         "swt_g1_fused_add": [_P, _P, _I64, _P, ctypes.c_uint32, _P, _P],
@@ -75,8 +78,8 @@ SIGNATURES = {
 
 #: kernel launches by kernel name since the last :func:`reset_launches`
 LAUNCHES = {"mont_mul": 0, "mod_add": 0, "mod_sub": 0, "mont_pow": 0, "ntt_reduce": 0,
-            "ntt_bitrev": 0, "ntt_butterfly": 0, "g1_fused_add": 0, "g1_fused_madd": 0,
-            "g1_bucket_combine": 0}
+            "ntt_bitrev": 0, "ntt_butterfly": 0, "ntt_pass": 0, "g1_fused_add": 0,
+            "g1_fused_madd": 0, "g1_bucket_combine": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()

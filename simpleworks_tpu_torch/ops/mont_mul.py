@@ -168,6 +168,21 @@ def mod_sub_plain(a: torch.Tensor, b: torch.Tensor, field: LimbField) -> torch.T
     return _reduce(_widen(a.to(torch.int64) - b.to(torch.int64) + _p_col(field, a.device)), field)
 
 
+def mod_add_sub_plain(a: torch.Tensor, b: torch.Tensor, field: LimbField):
+    """((a + b) mod p, (a − b) mod p): both carried in one pass, the
+    butterfly's pair (one reduce where :func:`mod_add_plain` and
+    :func:`mod_sub_plain` take two)."""
+    B = a.shape[1]
+    a64, b64 = a.to(torch.int64), b.to(torch.int64)
+    both = torch.cat([a64 + b64, a64 - b64 + _p_col(field, a.device)], dim=1)
+    if 2 * B <= PLAIN_CHUNK or a.device.type != "cpu":
+        out = _reduce(_widen(both), field)
+    else:
+        out = torch.cat([_reduce(_widen(both[:, i : i + PLAIN_CHUNK]), field)
+                         for i in range(0, 2 * B, PLAIN_CHUNK)], dim=1)
+    return out[:, :B], out[:, B:]
+
+
 @lru_cache(maxsize=32)
 def pow_schedule(exponent: int, window: int) -> tuple[tuple[int, int], ...]:
     """``exponent`` as Σ digit·2^shift over a sliding window, from the top:

@@ -1,23 +1,32 @@
-"""The radix-2 butterfly NTT over Fr limb tensors: the transform of
-``dvec.fft``/``ifft`` on the card and of the sharded plane's local columns
-and rows.
+"""The radix-2 NTT over Fr limb tensors: the transform of ``dvec.fft``/
+``ifft`` on the card and of the sharded plane's local columns and rows.
 
 Port of ``simpleworks_tpu/poly/ntt_device.py``, the XLA butterfly NTT that
 the JAX package runs on every backend that is not a TPU (its MXU
-DFT-as-matmul, :mod:`..ops.ntt` here, runs only on a TPU).  An iterative
-Cooley–Tukey: the bit-reversal permutation, then log2(n) radix-2 stages,
-each one launch of a kernel of :mod:`..ops.ntt_butterfly` over the whole
-batch (the plain versions on a CPU tensor).  Natural order in and out;
-outputs equal the host oracle (:func:`..poly.domain.ntt_host`) and the
-reference's element for element.
+DFT-as-matmul, :mod:`..ops.ntt` here, runs only on a TPU).  The reference
+runs the bit-reversal permutation, then log2(n) radix-2 stages; this port
+computes the same transform in passes of shared-memory tiles
+(:func:`..ops.ntt_butterfly.ntt_transform`): a four-step split of n into
+tiles of at most 2^11 points, one launch of the pass kernel a pass over the
+whole batch (one launch up to 2^11 points, two up to 2^22), the bit
+reversal folded into each pass's store and the inverse's 1/n into the last
+pass; on a CPU tensor, the same passes over the plain field ops.  Natural
+order in and out; outputs equal the host oracle
+(:func:`..poly.domain.ntt_host`), the reference's and the stage route's
+element for element (every value is canonical).
 
 Layout: the port's ``[16, n]`` int32 Montgomery limbs (the reference's
 ``[n, 16]`` uint32 transposed), batched as ``[16, B, n]``.
 
-The twiddles are the reference's stage tables (``ntt_device.py:62-75``),
-stored as one table of the n/2 Montgomery powers of ω (and one of ω⁻¹),
-built on the transform's device by ``dvec.powers_vec``; stage s reads
-entry k·n/2^(s+1).  The inverse's 1/n rides on the last stage.
+The tables (:class:`..ops.ntt_butterfly.PassTables`, one set for ω and one
+for ω⁻¹, built on the transform's device once a size by ``dvec.powers_vec``
+under the memo's lock): the in-tile stage twiddles ω_2h^k of every stage up
+to the largest tile (2^11 − 1 entries at most), and two tables of
+ω^(i·2^⌈log2(n)/2⌉) and ω^i whose products give the four-step twiddles
+(2^10 entries each at 2^20); on the card, packed into 32-bit words as well.
+The stage route's table of the n/2 powers of ω (``twiddles_fwd``,
+``twiddles_inv``, for ``ops.ntt_butterfly.stage_route``, which no path
+runs) is built only when it is first read.
 
 Departures from the reference: ``n = 1`` is accepted (the identity), as the
 port's ``dvec`` takes every power of two; the batched forms
@@ -30,14 +39,14 @@ single form; ``get_device_ntt`` takes the device.
 from __future__ import annotations
 
 import threading
-from functools import lru_cache
+from functools import cached_property, lru_cache
 
 import torch
 
 from ..device import resolve
 from ..fields.bls12_377 import FR_MODULUS, Fr, fr_root_of_unity
 from ..fields.device import DeviceField
-from ..ops.ntt_butterfly import L, _log2, ntt_bitrev, ntt_butterfly
+from ..ops.ntt_butterfly import MAX_TILE_LOG, L, PassTables, _log2, ntt_transform, pack_words
 
 P = FR_MODULUS
 
@@ -53,17 +62,48 @@ class DeviceNTT:
     inverse), its twiddle tables built once."""
 
     def __init__(self, n: int, device=None):
-        from ..fields import dvec
-
         self.log_n = _log2(n)
         self.n = n
         self.device = resolve(device)
         self.df = fr_device_field()
-        omega = fr_root_of_unity(n)
-        half = max(n // 2, 1)
-        self.twiddles_fwd = dvec.powers_vec(omega, half, self.device).contiguous()
-        self.twiddles_inv = dvec.powers_vec(pow(omega, P - 2, P), half, self.device).contiguous()
+        self.omega = fr_root_of_unity(n)
+        self.omega_inv = pow(self.omega, P - 2, P)
+        self.tables = {False: self._pass_tables(self.omega), True: self._pass_tables(self.omega_inv)}
         self.n_inv = pow(n, P - 2, P)
+
+    def _pass_tables(self, omega: int) -> PassTables:
+        """The pass kernel's tables of one direction (ω or ω⁻¹)."""
+        from ..fields import dvec
+
+        stage_log = min(max(self.log_n, 1), MAX_TILE_LOG)
+        # ω_2h^k = ω_top^(k·top/2h), ω_top = ω^(n/top) the root of the largest tile
+        top = dvec.powers_vec(pow(omega, self.n >> stage_log, P) if self.log_n else 1,
+                              1 << (stage_log - 1), self.device)
+        idx = torch.cat([torch.arange(1 << s, dtype=torch.int64) << (stage_log - 1 - s)
+                         for s in range(stage_log)]).to(self.device)
+        stage = top[:, idx].contiguous()
+        log_lo = (self.log_n + 1) // 2
+        lo = dvec.powers_vec(omega, 1 << log_lo, self.device).contiguous()
+        hi = dvec.powers_vec(pow(omega, 1 << log_lo, P), 1 << (self.log_n - log_lo),
+                             self.device).contiguous()
+        packed = None
+        if self.device.type == "cuda":
+            packed = (pack_words(stage), pack_words(hi), pack_words(lo))
+        return PassTables(stage, hi, lo, log_lo, packed)
+
+    @cached_property
+    def twiddles_fwd(self) -> torch.Tensor:
+        """[16, n/2] Montgomery powers of ω: the stage route's table."""
+        from ..fields import dvec
+
+        return dvec.powers_vec(self.omega, max(self.n // 2, 1), self.device).contiguous()
+
+    @cached_property
+    def twiddles_inv(self) -> torch.Tensor:
+        """[16, n/2] Montgomery powers of ω⁻¹: the stage route's table."""
+        from ..fields import dvec
+
+        return dvec.powers_vec(self.omega_inv, max(self.n // 2, 1), self.device).contiguous()
 
     def _check(self, x: torch.Tensor, batched: bool) -> None:
         dims = 3 if batched else 2
@@ -75,13 +115,9 @@ class DeviceNTT:
             raise ValueError(f"tensor on {x.device}, transform tables on {self.device}")
 
     def _transform(self, x: torch.Tensor, inverse: bool) -> torch.Tensor:
-        """[16, B, n] -> [16, B, n] (a new tensor; the inverse scaled by 1/n)."""
-        y = ntt_bitrev(x)
-        table = self.twiddles_inv if inverse else self.twiddles_fwd
-        for stage in range(self.log_n):
-            last = stage == self.log_n - 1
-            ntt_butterfly(y, stage, table, self.n_inv if inverse and last else None)
-        return y
+        """[16, B, n] -> [16, B, n] (a new tensor; the inverse scaled by 1/n):
+        the pass kernel on the card, its plain passes on the CPU."""
+        return ntt_transform(x, self.tables[inverse], self.n_inv if inverse else None)
 
     # -- Montgomery-form device API ------------------------------------------
 
@@ -97,7 +133,7 @@ class DeviceNTT:
 
     def fft_mont_batch(self, x: torch.Tensor) -> torch.Tensor:
         """B transforms at once, [16, B, n] -> [16, B, n]: one launch a
-        stage over the whole batch."""
+        pass over the whole batch."""
         self._check(x, batched=True)
         return self._transform(x, inverse=False)
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (the field kernels, the NTT's reduce kernel, the
-butterfly NTT's bit reversal and stage, the fused G1 point add, the MSM's
-bucket accumulate and its bucket combine) against their plain PyTorch
-versions, on the card (exact equality: field arithmetic is exact).
+butterfly NTT's pass kernel and the stage route's bit reversal and stage,
+the fused G1 point add, the MSM's bucket accumulate and its bucket
+combine) against their plain PyTorch versions, on the card (exact
+equality: field arithmetic is exact).
 
 Skips without a CUDA device.  On a machine with one:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
@@ -221,6 +222,82 @@ def fused_cases(ins):
     return [("g1_fused_add", g1_fused.fused_add, g1_fused.fused_add_plain, (ins["p3"], ins["q3"])),
             ("g1_fused_madd", g1_fused.fused_madd, g1_fused.fused_madd_plain,
              (ins["p3"], ins["q2"]))]
+
+
+def pass_batch(log_n, batch, device):
+    """[16, batch, 2^log_n] seed-made limbs; past 2^22 lanes, column b is
+    column b % 4 of a smaller draw rolled by b (distinct columns)."""
+    n = 1 << log_n
+    if batch * n <= 1 << 22:
+        return rand_field(FR, batch * n, 13 + log_n, device).reshape(16, batch, n)
+    base = rand_field(FR, 4 * n, 13 + log_n, device).reshape(16, 4, n)
+    return torch.stack([base[:, b % 4].roll(b, dims=1) for b in range(batch)], dim=1)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 128])
+@pytest.mark.parametrize("log_n", list(range(13)) + [16, 20])
+def test_ntt_pass_kernel_matches_plain(cuda, log_n, batch):
+    """The pass kernel against its plain passes on the card, forward and
+    inverse, one launch counted a pass of its plan; past 2^22 lanes the
+    first, second and last transforms of the batch are held (the plain
+    version's temporaries)."""
+    from simpleworks_tpu_torch.ops import ntt_butterfly as bf
+    from simpleworks_tpu_torch.poly.ntt_device import get_device_ntt
+
+    x = pass_batch(log_n, batch, cuda)
+    ntt = get_device_ntt(1 << log_n, cuda)
+    passes = len(bf.pass_plan(log_n, batch))
+    cols = range(batch) if batch << log_n <= 1 << 22 else (0, 1, batch - 1)
+    for inverse in (False, True):
+        tables, scale = ntt.tables[inverse], (ntt.n_inv if inverse else None)
+        before = mm.LAUNCHES["ntt_pass"]
+        got = bf.ntt_transform(x, tables, scale)
+        torch.cuda.synchronize()
+        assert mm.LAUNCHES["ntt_pass"] == before + passes
+        if len(cols) == batch:
+            assert torch.equal(got, bf.ntt_passes_plain(x, tables, scale))
+        for b in () if len(cols) == batch else cols:
+            want = bf.ntt_passes_plain(x[:, b : b + 1].contiguous(), tables, scale)
+            assert torch.equal(got[:, b : b + 1], want), b
+        del got
+
+
+def test_ntt_pass_kernel_resources(cuda):
+    """Registers, spills and shared memory of the pass kernel: every default
+    plan from 2^0 to 2^30 points fits its thread and shared-memory limits."""
+    from simpleworks_tpu_torch.ops import ntt_butterfly as bf
+
+    res = bf.kernel_resources()
+    assert 0 < res["registers"] <= 65536 // res["max_threads"]
+    assert res["local_bytes"] == 0
+    for log_n in range(31):
+        for log_t, log_c, threads, _ in bf.pass_plan(log_n, 1):
+            assert threads <= res["max_threads"]
+            assert bf.tile_smem_bytes(log_t, log_c) <= res["smem_limit"]
+
+
+def test_ntt_pass_rejects_bad_inputs(cuda):
+    """Bad plans, tables and tensors raise, and launch nothing."""
+    from simpleworks_tpu_torch.ops import ntt_butterfly as bf
+    from simpleworks_tpu_torch.poly.ntt_device import get_device_ntt
+
+    x = rand_field(FR, 8, 14, cuda).reshape(16, 1, 8)
+    tables = get_device_ntt(8, cuda).tables[False]
+    before = mm.LAUNCHES["ntt_pass"]
+    for plan in (((2, 0, 32, 0),),    # the tiles do not sum to log2(n)
+                 ((3, 6, 32, 0),),    # 64 columns a block
+                 ((3, 0, 1024, 0),),  # more threads than the kernel's bound
+                 ((3, 0, 48, 0),),    # not whole warps
+                 ((3, 0, 32, 2),)):   # neither build
+        with pytest.raises(RuntimeError):
+            bf.ntt_transform(x, tables, None, plan)
+    for args in ((x, get_device_ntt(8, torch.device("cpu")).tables[False]),  # host tables
+                 (x, get_device_ntt(16, cuda).tables[False]),              # another size's
+                 (x.to(torch.int64), tables),
+                 (rand_field(FR, 12, 15, cuda).reshape(16, 1, 12), tables)):
+        with pytest.raises(ValueError):
+            bf.ntt_transform(*args)
+    assert mm.LAUNCHES["ntt_pass"] == before
 
 
 @pytest.mark.parametrize("n", [1, 257, 5000])
