@@ -21,7 +21,15 @@ printed as one JSON line, any failure raising:
    composed adds over the field kernels, exactly, at the MSM's lane widths
    [24, 32768] and [24, 155648], on seed-made points with the identities,
    doublings and P + (-P) mixed in, timed; and 2048 lanes against the host
-   point law;
+   point law; then the fixed-base kernel (the setup's SRS powers, one
+   launch) at the KZG path's width, MAX_DEGREE + 1 = 1,572,862 lanes of
+   that setup's scalars: against the per-window route it replaced (one
+   gather and one fused-add launch a window, timed in the same call) on
+   every lane, against its plain version on the first and last 2^14 lanes,
+   and against the host runtime's fixed base on crafted scalars (0, 1,
+   r - 1, one nonzero digit in each window, 255 in every window below the
+   top; past r, 2^256 - 1 and sums that cancel or double at the top
+   window), exactly, with its registers and spills;
 5. the NTTs: the limb matmul's reduce kernel (ops/ntt.py, the TPU's route,
    which no path runs) against its plain version on the real first-level
    planes of a seed-made 2^20-point transform (exact); the butterfly NTT
@@ -124,8 +132,8 @@ printed as one JSON line, any failure raising:
     CPU path is the one the tests hold against the JAX package);
 18. the kernels line: each kernel's launches on each path (the counts set to
     0 before the path and read after it; every kernel a path runs must have
-    launched there, and the limb matmul's reduce and the stage route's
-    kernels on none), its largest error
+    launched there, and the limb matmul's reduce, the stage route's kernels
+    and the single fused add on none), its largest error
     against the plain version, its time, the plain version's, and the least
     time the card could take (bound_ms).
 
@@ -258,6 +266,9 @@ ACCUMULATE_C = 13
 #: the combine check: every group of the 2^17-point MSM at the window bits
 #: the MSM picks (c = 8), and the accumulate check's group
 COMBINE_LOG = 17
+#: the fixed-base check: the plain version on the first and the last
+#: FIXED_BASE_SLICE lanes of the setup's width
+FIXED_BASE_SLICE = 1 << 14
 #: the Fr widths of the prove's two dvec.inv (marlin/prover.py): the pow
 #: timed there, and checked against its plain version on its first and its
 #: last POW_SLICE lanes (the plain pow takes ~0.8 s at that width)
@@ -274,7 +285,7 @@ SOURCES = {"mont_mul": FIELD_SOURCE, "mod_add": FIELD_SOURCE, "mod_sub": FIELD_S
            "mont_pow": FIELD_SOURCE, "ntt_reduce": NTT_SOURCE, "ntt_bitrev": NTT_SOURCE,
            "ntt_butterfly": NTT_SOURCE, "ntt_pass": NTT_SOURCE,
            "g1_fused_add": G1_SOURCE, "g1_fused_madd": G1_SOURCE,
-           "g1_bucket_combine": G1_SOURCE}
+           "g1_bucket_combine": G1_SOURCE, "g1_fixed_base": G1_SOURCE}
 REPLACES = {
     "mont_mul": "simpleworks_tpu/ops/mont_mul_pallas.py:105",
     "mod_add": "simpleworks_tpu/ops/mont_mul_pallas.py:130",
@@ -292,21 +303,33 @@ REPLACES = {
     # the add kernel, run by the fold and the two suffix passes of
     # simpleworks_tpu/ops/msm_pippenger.py:262-284
     "g1_bucket_combine": "simpleworks_tpu/ops/g1_fused_pallas.py:112",
+    # the add kernel once more, run by the setup's scan (SCANS)
+    "g1_fixed_base": "simpleworks_tpu/ops/g1_fused_pallas.py:112",
 }
+#: the reference's scans around a point-add kernel that one launch of the
+#: port's kernel runs whole
+SCANS = {"g1_fused_madd": "simpleworks_tpu/ops/msm_pippenger.py:251-260",
+         "g1_bucket_combine": "simpleworks_tpu/ops/msm_pippenger.py:262-284",
+         "g1_fixed_base": "simpleworks_tpu/ops/srs_device.py:54-62"}
 #: the kernels that compute in the field alone (check_kernels)
 FIELD_KERNELS = ("mont_mul", "mod_add", "mod_sub", "mont_pow")
 #: the butterfly NTT's kernels: the pass kernel (every transform of the
 #: prover's paths) and the stage route's two, its baseline
 BUTTERFLY_KERNELS = ("ntt_bitrev", "ntt_butterfly", "ntt_pass")
-#: kernels held by check_ntt that no path runs: the limb-matmul NTT's reduce
-#: (the reference's MXU route, which it runs only on a TPU) and the stage
-#: route's bit reversal and stage (the pass kernel's baseline, timed beside it)
-OFF_PATH = ("ntt_reduce", "ntt_bitrev", "ntt_butterfly")
-#: Fq multiplies of one lane of each point add (or of one valid cell of the
-#: accumulate, or of one lane of a combine step that runs the add): the
-#: general formula, and the doubling that only the lanes needing it run
-G1_MULS = {"g1_fused_add": 16, "g1_fused_madd": 11, "g1_bucket_combine": 16}
-DOUBLE_MULS = 7
+#: kernels that no path runs: the limb-matmul NTT's reduce (the reference's
+#: MXU route, which it runs only on a TPU) and the stage route's bit reversal
+#: and stage (the pass kernel's baseline, timed beside it), held by
+#: check_ntt; the single fused add (held by check_g1; the per-window route
+#: of the fixed base, which check_fixed_base times, and the batched G1 API
+#: run it)
+OFF_PATH = ("ntt_reduce", "ntt_bitrev", "ntt_butterfly", "g1_fused_add")
+#: Fq products (multiplies, squarings) of one lane of each point add (or of
+#: one valid cell of the accumulate, or of one lane of a combine step that
+#: runs the add): the general formula (add-2007-bl, madd-2007-bl), and the
+#: doubling (dbl-2009-l) that only the lanes needing it run
+G1_PRODUCTS = {"g1_fused_add": (11, 5), "g1_fused_madd": (7, 4), "g1_bucket_combine": (11, 5),
+               "g1_fixed_base": (11, 5)}
+DOUBLE_PRODUCTS = (2, 5)
 #: the lane cases of the G1 point-add checks (g1_inputs)
 G1_CASES = ("general", "p_identity", "q_identity", "both_identity", "double", "opposite")
 #: H100 SXM: device memory rate (bytes/s) and streaming multiprocessors
@@ -567,6 +590,102 @@ def check_g1(device, widths=G1_LANES) -> dict:
         if g1_limb.points_from_limb_major(out) != expected:
             raise AssertionError(f"{name} differs from the host point law")
     return results
+
+
+def fixed_base_crafted() -> list[int]:
+    """Scalars for the fixed base against the host: 0, 1, r - 1, one nonzero
+    digit in each window (the digit (1 + 37·w mod 255) + 1), 255 in every window
+    below the top; then, past r, 2^256 - 1 and those whose walk meets the
+    complete add's equal-x cases at the top window: with k the scalar below
+    2^248 and d its top digit, m·r (k·G = -d·2^248·G, the sum cancels) and
+    2·d·2^248 - m·r for d = ceil(m·r / 2^248) (k·G = d·2^248·G, the sum
+    doubles), m = 1, 2, 3."""
+    from simpleworks_tpu_torch.fields.bls12_377 import FR_MODULUS as P
+
+    below = [0, 1, P - 1, *(((1 + 37 * w) % 255 + 1) << (8 * w) for w in range(32)),
+             (1 << 248) - 1]
+    doubling = [2 * (-(-m * P >> 248) << 248) - m * P for m in (1, 2, 3)]
+    for s in doubling:  # the part below 2^248 is the top row's point again
+        if (s % (1 << 248) - (s >> 248 << 248)) % P:
+            raise AssertionError(f"{s:#x} does not double at the top window")
+    return below + [(1 << 256) - 1, *(m * P for m in (1, 2, 3)), *doubling]
+
+
+def fixed_base_work(scalars_std) -> dict:
+    """The fixed base's work on these scalars: a lane's first nonzero digit
+    adds its row to the identity (no arithmetic), and each later nonzero
+    digit adds a row to a point, 16 Fq products; none doubles (below r a
+    partial sum k < 2^(8w) never equals, nor cancels, d·2^(8w) < r)."""
+    import torch
+
+    digits = torch.stack([(scalars_std[w >> 1] >> (8 * (w & 1))) & 0xFF for w in range(32)])
+    nonzero = (digits != 0).sum(0)
+    return {"adds": int((nonzero - 1).clamp(min=0).sum()), "double_lanes": 0}
+
+
+def check_fixed_base(device, lanes: int = MAX_DEGREE + 1,
+                     plain_slice: int = FIXED_BASE_SLICE) -> dict:
+    """The fixed-base kernel on the scalars of the KZG path's setup
+    (τ^0 .. τ^(lanes-1), out of Montgomery form as the setup hands them
+    over): against the per-window route it replaced on every lane, against
+    its plain version on the first and the last ``plain_slice`` lanes, and
+    against the host runtime's fixed base on fixed_base_crafted(), all
+    exactly; the kernel and the route timed in this call, the plain version
+    on the first slice, with the kernel's registers and spills.  Its
+    launches here are checks, outside every path's counts."""
+    import numpy as np
+    import torch
+
+    from simpleworks_tpu_torch import native
+    from simpleworks_tpu_torch.curves.bls12_377 import G1Point
+    from simpleworks_tpu_torch.fields import dvec
+    from simpleworks_tpu_torch.fields.bls12_377 import Fr
+    from simpleworks_tpu_torch.fields.device import ints_to_limbs
+    from simpleworks_tpu_torch.ops import g1_fused, srs_device
+    from simpleworks_tpu_torch.utils.rng import test_rng
+
+    g = G1Point.generator()
+    tau = Fr.rand(test_rng()).value  # the KZG path's setup's first draw
+    scalars = dvec.to_standard(dvec.powers_vec(tau, lanes, device))
+    table = srs_device._packed_table(g, device)
+    got = g1_fused.fixed_base(table, scalars)
+    route = srs_device.fixed_base_per_window(g, scalars)
+    sync(device)
+    if not all(map(torch.equal, got, route)):
+        raise AssertionError(f"the fixed-base kernel differs from the per-window route at "
+                             f"{lanes} lanes")
+    del route
+    sync(device)
+    t0 = time.perf_counter()
+    first = g1_fused.fixed_base_plain(table, scalars[:, :plain_slice])
+    sync(device)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    last = g1_fused.fixed_base_plain(table, scalars[:, -plain_slice:])
+    ends = tuple(torch.cat([a[:, :plain_slice], a[:, -plain_slice:]], 1) for a in got)
+    expected = tuple(torch.cat(pair, 1) for pair in zip(first, last))
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              for a, b in zip(ends, expected))
+    if err:
+        raise AssertionError(f"the fixed-base kernel differs from its plain version (max abs "
+                             f"err {err})")
+    del got, ends, expected
+    crafted = fixed_base_crafted()
+    host = native.g1_fixed_base_raw(g, crafted)  # [N, 18] u64 Jacobian Montgomery words
+    host_planes = np.ascontiguousarray(host).view("<u2").reshape(-1, 3, 24).transpose(1, 2, 0)
+    out = g1_fused.fixed_base(
+        table, torch.from_numpy(ints_to_limbs(crafted, 16).astype(np.int32)).to(device))
+    if not torch.equal(torch.stack(out).cpu(), torch.from_numpy(host_planes.astype(np.int32))):
+        raise AssertionError("the fixed-base kernel differs from the host runtime on the "
+                             "crafted scalars")
+    resources = g1_fused.kernel_resources()["g1_fixed_base"] if device.type == "cuda" else {}
+    return {"shape": [24, lanes], "windows": 32, **fixed_base_work(scalars), **resources,
+            "equal": True, "route_equal": True, "host_scalars": len(crafted),
+            "host_equal": True, "max_abs_err": err,
+            "plain_shape": [24, plain_slice], "checked_lanes": f"first and last {plain_slice}",
+            "plain_ms": plain_ms,
+            "route_ms": time_ms(lambda: srs_device.fixed_base_per_window(g, scalars), device,
+                                reps=3),
+            "ms": time_ms(lambda: g1_fused.fixed_base(table, scalars), device)}
 
 
 def check_accumulate(device, log_n: int = ACCUMULATE_LOG, c: int = ACCUMULATE_C,
@@ -1546,6 +1665,21 @@ def profile_prove(device, sizes=SRS_SIZES, top: int = 15) -> dict:
             "top": [{"name": k[:80], "s": busy_us[k] / 1e6, "count": count[k]} for k in ranked]}
 
 
+def product_ops(words: int, multiplies: int, squarings: int) -> int:
+    """32-bit multiply-adds of Montgomery products of ``words``-word values:
+    2 N^2 a multiply (N^2 for a·b, N^2 for m·p) and N(N+1)/2 + N^2 a
+    squaring (each cross product a_i a_j once), N = ``words``."""
+    square = words * (words + 1) // 2 + words * words
+    return multiplies * 2 * words * words + squarings * square
+
+
+def g1_ops(name: str, lanes: int, double_lanes: int = 0) -> int:
+    """The 32-bit multiply-adds of the Fq products of ``lanes`` point adds of
+    kernel ``name`` (G1_PRODUCTS), ``double_lanes`` of them doubling too."""
+    return (lanes * product_ops(12, *G1_PRODUCTS[name])
+            + double_lanes * product_ops(12, *DOUBLE_PRODUCTS))
+
+
 def pow_work(exponent: int, words: int) -> dict:
     """The Montgomery products one lane of the pow kernel runs for
     ``exponent`` along its schedule (ops/mont_mul.py pow_schedule at
@@ -1558,9 +1692,8 @@ def pow_work(exponent: int, words: int) -> dict:
     table = mm.pow_table_size(schedule)
     squarings = (table > 1) + (schedule[0][1] if schedule else 0)
     multiplies = table - 1 + max(len(schedule) - 1, 0)
-    mul_ops = 2 * words * words
     return {"squarings": squarings, "multiplies": multiplies,
-            "ops": squarings * (words * (words + 1) // 2 + words * words) + multiplies * mul_ops}
+            "ops": product_ops(words, multiplies, squarings)}
 
 
 def bound_ms(name: str, shape, clock_mhz: float, exponent: int | None = None,
@@ -1569,16 +1702,15 @@ def bound_ms(name: str, shape, clock_mhz: float, exponent: int | None = None,
     larger of the bytes moved (each input read once, each output written
     once) over the memory rate and the 32-bit multiply-adds over
     SMS x IMAD_PER_SM_CLOCK x the SM clock.  A 32 x 32 -> 64-bit product
-    counts as one multiply-add; a point add counts its Fq multiplies (the
-    doubling on ``double_lanes`` lanes only), not its adds and selects; the
-    pow counts the products of its schedule (pow_work)."""
+    counts as one multiply-add; a point add counts its Fq products (g1_ops:
+    the doubling on ``double_lanes`` lanes only), not its adds and selects;
+    the pow counts the products of its schedule (pow_work)."""
     rows, lanes = shape
     imad_per_s = SMS * IMAD_PER_SM_CLOCK * clock_mhz * 1e6
-    if name in G1_MULS:
-        words = rows // 2
+    if name in G1_PRODUCTS:
         planes = 9 if name == "g1_fused_add" else 8  # 6 or 5 in, 3 out
         nbytes = planes * rows * 4 * lanes
-        ops = 2 * words * words * (lanes * G1_MULS[name] + double_lanes * DOUBLE_MULS)
+        ops = g1_ops(name, lanes, double_lanes)
     elif name == "ntt_reduce":
         nbytes = (rows + 16) * 4 * lanes
         ops = lanes * (17 * 16 + 17)  # 17 REDC rounds of 16 limb products, plus m
@@ -1619,14 +1751,12 @@ def butterfly_bound_ms(name: str, row: dict, clock_mhz: float) -> tuple[float, s
 def combine_bound_ms(row: dict, clock_mhz: float) -> tuple[float, str]:
     """The least time the card could take for the combine of ``row``
     (check_combine): bytes, one read of the [3, 24, W·S·b] bucket sums and
-    one write of the [3, 24, W] window sums; operations, the 16 Fq
-    multiplies of every add the function needs (combine_work's
-    ``add_lanes``: the fold and the running sums, not the kernel's scan)
-    and the doubling's 7 of every one that doubles, each 2 x 12^2
-    multiply-adds."""
+    one write of the [3, 24, W] window sums; operations, the Fq products
+    (g1_ops) of every add the function needs (combine_work's ``add_lanes``:
+    the fold and the running sums, not the kernel's scan) and the
+    doubling's of every one that doubles."""
     nbytes = 288 * (row["shape"][1] + row["windows"])
-    ops = 2 * 12 * 12 * (G1_MULS["g1_bucket_combine"] * row["add_lanes"]
-                         + DOUBLE_MULS * row["double_lanes"])
+    ops = g1_ops("g1_bucket_combine", row["add_lanes"], row["double_lanes"])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / (SMS * IMAD_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1637,13 +1767,27 @@ def accumulate_bound_ms(row: dict, clock_mhz: float) -> tuple[float, str]:
     (check_accumulate): bytes, idx and valid of every cell, a 192-byte
     table row of every valid cell, the three 96-byte output coordinates of
     every lane (and as many in for a starting accumulator); operations, the
-    11 Fq multiplies of every valid cell and the doubling's 7 of every cell
-    that doubles, each 2 x 12^2 multiply-adds."""
+    mixed add's Fq products (g1_ops) of every valid cell and the doubling's
+    of every cell that doubles."""
     lanes = row["shape"][1]
     cells = row["depth"] * lanes
     nbytes = 9 * cells + 192 * row["valid_cells"] + 288 * lanes * (2 if row["start"] else 1)
-    ops = 2 * 12 * 12 * (G1_MULS["g1_fused_madd"] * row["valid_cells"]
-                         + DOUBLE_MULS * row["double_cells"])
+    ops = g1_ops("g1_fused_madd", row["valid_cells"], row["double_cells"])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (SMS * IMAD_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fixed_base_bound_ms(row: dict, clock_mhz: float) -> tuple[float, str]:
+    """The least time the card could take for the fixed base of ``row``
+    (check_fixed_base): bytes, the 64 bytes of a lane's scalar limbs in and
+    its 288 bytes of Jacobian planes out, and the [8192, 36] window table
+    read once; operations, the Fq products (g1_ops: 11 multiplies and 5
+    squarings) of every add of a row to a point (fixed_base_work's
+    ``adds``)."""
+    lanes = row["shape"][1]
+    nbytes = (64 + 288) * lanes + 8192 * 36 * 4
+    ops = g1_ops("g1_fixed_base", row["adds"])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / (SMS * IMAD_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -2233,6 +2377,8 @@ def main(argv: list[str]) -> int:
     g1_checks = check_g1(device)
     emit({"g1_checks": g1_checks})
     checks.update(g1_checks)
+    checks["g1_fixed_base"] = [check_fixed_base(device)]
+    emit({"fixed_base_check": checks["g1_fixed_base"][0]})
     ntt_checks = check_ntt(device)
     emit({"ntt_checks": ntt_checks})
     checks["ntt_reduce"] = [ntt_checks["reduce"]]
@@ -2288,11 +2434,11 @@ def main(argv: list[str]) -> int:
         return result
 
     # the KZG path: digits (mont_mul), the SRS's normalisation (mont_pow),
-    # the setup's fixed-base powers (add), the accumulate and the combine;
-    # the MSM path runs no setup (the SRS is the KZG path's memo)
+    # the setup's fixed-base powers, the accumulate and the combine; the MSM
+    # path runs no setup (the SRS is the KZG path's memo)
     msm = ["g1_fused_madd", "g1_bucket_combine"]
-    kzg = ["mont_mul", "mont_pow", "g1_fused_add", *msm]
-    prover = [*FIELD_KERNELS, "ntt_pass", "g1_fused_add", *msm]
+    kzg = ["mont_mul", "mont_pow", "g1_fixed_base", *msm]
+    prover = [*FIELD_KERNELS, "ntt_pass", "g1_fixed_base", *msm]
     paths = {}
     paths["kzg"] = drive_counting_pow("KZG", kzg, lambda: run_slice(device))
     emit({"kzg_slice": paths["kzg"]})
@@ -2316,9 +2462,9 @@ def main(argv: list[str]) -> int:
     emit({"marlin": paths["marlin"]})
     for label in ("chain", "marlin"):
         warm = paths[label]["prove_warm_launches"]
-        if warm["g1_fused_add"] or warm["g1_bucket_combine"] <= 0:
-            raise AssertionError(f"the {label} path's warm prove ran the fused add or no "
-                                 f"combine: {warm}")
+        if warm["g1_fused_add"] or warm["g1_fixed_base"] or warm["g1_bucket_combine"] <= 0:
+            raise AssertionError(f"the {label} path's warm prove ran the fused add, the fixed "
+                                 f"base or no combine: {warm}")
     # the old default in the same call, outside the paths' counts
     emit({"marlin_affine": drive_affine_prove(
         lambda: run_affine_prove(device, kept["pk"], kept["cs"], kept["proof"]),
@@ -2365,7 +2511,7 @@ def main(argv: list[str]) -> int:
     for name, rows in checks.items():
         # the Fq shape for the binary ops and the add, the Fr pow (its widest
         # row checked on every lane), the group's accumulate and combine
-        main_row = [r for r in rows if "plain_shape" not in r][-1]
+        main_row = ([r for r in rows if "plain_shape" not in r] or rows)[-1]
         for row in rows:
             # the pow's exponent is the Fermat one of the row's field
             exponent = (FR if row["shape"][0] == 16 else FQ).p - 2 if name == "mont_pow" else None
@@ -2374,6 +2520,8 @@ def main(argv: list[str]) -> int:
                 row.update(squarings=work["squarings"], multiplies=work["multiplies"])
             if name == "g1_bucket_combine":
                 row["bound_ms"], row["bound_by"] = combine_bound_ms(row, clock_mhz)
+            elif name == "g1_fixed_base":
+                row["bound_ms"], row["bound_by"] = fixed_base_bound_ms(row, clock_mhz)
             elif name in BUTTERFLY_KERNELS:
                 row["bound_ms"], row["bound_by"] = butterfly_bound_ms(name, row, clock_mhz)
             elif "depth" in row:
@@ -2384,12 +2532,15 @@ def main(argv: list[str]) -> int:
         by_path = {label: run["launches"][name] for label, run in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            **({"scan": SCANS[name]} if name in SCANS else {}),
             "launches": sum(by_path.values()),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row.get("library_ms"),
-            "shape": main_row["shape"], "equal": all(r["equal"] for r in rows),
+            "shape": main_row["shape"],
+            **({"plain_shape": main_row["plain_shape"]} if "plain_shape" in main_row else {}),
+            "equal": all(r["equal"] for r in rows),
             "launches_by_path": by_path,
             "shapes": [{k: r[k] for k in ("shape", "depth", "windows", "segments", "buckets", "ms",
                                           "plain_ms", "plain_shape", "checked_lanes", "route_ms",
@@ -2401,7 +2552,7 @@ def main(argv: list[str]) -> int:
     if any(k["launches"] <= 0 for k in kernels if k["name"] not in OFF_PATH):
         raise AssertionError("a kernel launched on no path")
     if any(k["launches"] for k in kernels if k["name"] in OFF_PATH):
-        raise AssertionError(f"a path launched a kernel of the limb-matmul NTT: {OFF_PATH}")
+        raise AssertionError(f"a path launched a kernel that runs on no path: {OFF_PATH}")
     emit({"kernels": kernels})
     if argv == ["--profile"]:
         emit({"profile": profile_prove(device)})

@@ -158,7 +158,8 @@ __device__ __forceinline__ void mod_sub(uint32_t (&r)[N], const uint32_t (&a)[N]
 }
 
 // ---------------------------------------------------------------------------
-// Carry-chain Montgomery arithmetic (inline PTX), for the Fermat pow.
+// Carry-chain Montgomery arithmetic (inline PTX), for the Fermat pow, the
+// NTT and the G1 kernels.
 //
 // Each 32 x 32 -> 64-bit product is a mad.lo / madc.hi pair whose adds ride
 // the carry flag (.cc / madc).  Written into adjacent words, the pair is one

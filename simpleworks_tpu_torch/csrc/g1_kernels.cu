@@ -13,6 +13,11 @@
 //                              accumulate_windows: the segment fold and the
 //                              two suffix passes (lax.fori_loop over
 //                              g1_limb.add of a dynamic-slice shift)
+//   swt_g1_fixed_base       <- _fused_add_kernel once more, together with the
+//                              scan that runs it once a window in
+//                              simpleworks_tpu/ops/srs_device.py: the SRS's
+//                              fixed-base powers (lax.scan of 32 gathers and
+//                              adds over the lanes)
 //
 // A point is three (Jacobian X, Y, Z) or two (affine x, y) coordinate planes,
 // each a limb-major [24, B] int32 Fq vector of 16-bit Montgomery limbs with
@@ -20,22 +25,26 @@
 // Jacobian identity, x = y = 0 the affine one.  The result is written to one
 // dense [3, 24, B] array: X, then Y, then Z.
 //
-// The field arithmetic is that of the field kernels (CIOS Montgomery
-// multiply, modular add and subtract), so every intermediate equals the
-// composed path's, and the selection order is the reference kernels'
-// exactly: the outputs are Jacobian coordinates, and an equivalent but
-// different (X, Y, Z) would be wrong.
+// The field arithmetic is that of field_arith.cuh: the carry-chain
+// Montgomery multiply and squaring (mont_mul_cc, mont_sqr), which give the
+// words of the field kernels' multiply, and the modular add and subtract,
+// so every intermediate equals the composed path's; and the selection order
+// is the reference kernels' exactly: the outputs are Jacobian coordinates,
+// and an equivalent but different (X, Y, Z) would be wrong.  On the H100
+// the carry chains ran the add 2.9x, the accumulate 2.2x and the combine
+// 2.7x faster than the 64-bit CIOS of swt::mont_mul (PERF.md, rows 6-7).
 //
-//   add  (add-2007-bl, 16 multiplies):  double if H = 0 and r = 0; the
-//        identity if H = 0, r != 0 and neither input is the identity; then
-//        q = identity -> p; then p = identity -> q (the last wins).
-//   madd (madd-2007-bl, Z2 = 1, 11 multiplies):  double only if also
-//        neither input is the identity; the identity likewise; then
+//   add  (add-2007-bl, 11 multiplies, 5 squarings):  double if H = 0 and
+//        r = 0; the identity if H = 0, r != 0 and neither input is the
+//        identity; then q = identity -> p; then p = identity -> q (the last
+//        wins).
+//   madd (madd-2007-bl, Z2 = 1, 7 multiplies, 4 squarings):  double only
+//        if also neither input is the identity; the identity likewise; then
 //        p = identity -> (x2, y2, 1); then q = identity -> p (the last wins).
 //
-// The doubling (dbl-2009-l, a = 0, 7 multiplies) runs only on the lanes
-// that select it, which the branchless reference computes everywhere and
-// discards: the selected values are the same.
+// The doubling (dbl-2009-l, a = 0, 2 multiplies, 5 squarings) runs only on
+// the lanes that select it, which the branchless reference computes
+// everywhere and discards: the selected values are the same.
 //
 // The add: one thread a lane loads its lane of the six input planes, runs
 // the formula in registers and stores; the ragged edge is masked.
@@ -50,19 +59,19 @@
 // A lane whose cell is invalid skips the row's load and arithmetic.  A
 // single mixed add (fused_madd) is the depth-1 case.
 //
-// What bounds it on the card: a valid cell does 11 multiplies of 288 32-bit
-// multiply-adds and reads a 192-byte row, so the integer multiply rate
-// bounds it (3.8 ms for the ~20 M valid cells of a 2^20-point c = 13
-// group), three times the bytes' 1.2 ms.  Reaching that rate takes enough
-// warps to hide the latency of the dependent carry chains and of the
-// gathers.  Occupancy: one lane holds the accumulator, the added point and
-// ~8 temporaries of 12 words, and each of an SM's four schedulers holds the
-// registers of its own warps, so an SM runs 8 warps at up to 255 registers
-// a thread, 12 at 168 and 16 at 128.  __launch_bounds__(128, 3) asks for
-// 12, which costs a few spilled words.  Each thread loads its own row with
-// twelve 16-byte loads when it needs it.  On the H100, 12 warps ran the
-// 2^20 group faster than 8 or 16, and a cp.async prefetch of row d + 1
-// into shared memory while row d computes bought nothing at either
+// What bounds it on the card: a valid cell does 7 multiplies of 288 32-bit
+// multiply-adds and 4 squarings of 222 and reads a 192-byte row, so the
+// integer multiply rate bounds it (3.5 ms for the ~20 M valid cells of a
+// 2^20-point c = 13 group), three times the bytes' 1.2 ms.  Reaching that
+// rate takes enough warps to hide the latency of the dependent carry chains
+// and of the gathers.  Occupancy: one lane holds the accumulator, the added
+// point and ~8 temporaries of 12 words, and each of an SM's four schedulers
+// holds the registers of its own warps, so an SM runs 8 warps at up to 255
+// registers a thread, 12 at 168 and 16 at 128.  __launch_bounds__(128, 3)
+// asks for 12, which costs a few spilled words (184 bytes).  Each thread
+// loads its own row with twelve 16-byte loads when it needs it.  On the H100,
+// 12 warps ran the 2^20 group faster than 8 or 16, and a cp.async prefetch of
+// row d + 1 into shared memory while row d computes bought nothing at either
 // occupancy: the chains' latency, not the gathers', is what the warps hide
 // (PERF.md, row 6).
 //
@@ -72,8 +81,8 @@
 // a shift away (the step loop of g1_bucket_combine_kernel says which).  On
 // the TPU the steps are one compiled graph; launched one add at a time they
 // cost ~40 launches a group from the host, with a copy or a concatenation
-// before each.  What bounds it: the adds' multiplies, 16 of 288 multiply-
-// adds a lane that runs the formula, ~3.7 M such lanes (1.0 ms) at the
+// before each.  What bounds it: the adds' products, 4,278 multiply-adds a
+// lane that runs the formula, ~3.7 M such lanes (0.9 ms) at the
 // 2^20 c = 13 group against 45 MB read once, and in the 2^17 groups' narrow
 // steps (32 to 7,936 lanes) the latency of one add's dependent multiplies,
 // since most SMs then have no lane to run.  The design: every step in one
@@ -83,9 +92,34 @@
 // 32-bit words, half the bytes of the 16-bit limb planes; a lane whose
 // operand lies past its window skips the arithmetic.  Occupancy:
 // __launch_bounds__(64, 4), 8 warps an SM at up to 255 registers, holds the
-// formula in 254 without spills; (128, 3), 12 warps at 168 registers with
-// 336 bytes of spills, ran 3-16 % slower at the three MSM groups of the
-// path on the H100 (PERF.md, row 7).
+// formula in 255 with 88 bytes of spills.  It was chosen on the CIOS product,
+// which it held in 254 without spills, when (128, 3), 12 warps at 168
+// registers with 336 bytes of spills, ran 3-16 % slower at the three MSM
+// groups of the path on the H100 (PERF.md, row 7).
+//
+// The fixed base: lane j of the setup's powers is s_j G for a standard-form
+// scalar s_j < 2^256, cut into 32 digits of 8 bits, digit w selecting row
+// 256 w + d of a window table of d 2^(8w) G (row 256 w the identity).  On the
+// TPU a scan of 32 steps gathers each lane's row and adds it to the
+// accumulator, the accumulator in device memory between steps; launched one
+// add at a time that is 32 launches a 2^19-lane chunk, each writing a
+// gathered copy of the rows.  What bounds it on the card: 31 adds of 4,278
+// 32-bit multiply-adds a lane (window 0 adds to the identity), against 64
+// bytes of scalar in and 288 out, so the integer multiply rate.  The design:
+// one launch for all lanes, one thread a lane, the accumulator in registers
+// over all 32 windows and stored once; the table packed as 8192 rows of 36
+// 32-bit words (1.2 MB, which stays in L2), a lane loading its own 144-byte
+// row as nine 16-byte vectors.  The complete add's selects become branches
+// taken before the arithmetic: an identity accumulator takes the row (the
+// last select, p = identity -> q: all of window 0), an identity row leaves
+// the accumulator (q = identity -> p: digit 0), and the equal-x cases double
+// or cancel; the general formula computes Z3 right after H so that Z1 and Z2
+// die early. Every value is a canonical residue, so the words are the plain
+// version's. Occupancy: __launch_bounds__(128, 2), 8 warps an SM, holds a
+// lane in its registers without spills, as (64, 4) and (256, 1) do; (128, 3)
+// and (64, 5), 12 and 10 warps at 168 registers, spill and ran slower on the
+// H100, and (128, 2) ran fastest at the setup's 1,572,862 lanes, its
+// squarings faster on mont_sqr than on mont_mul_cc (PERF.md, row 7).
 
 #include <algorithm>
 #include <cstdint>
@@ -110,8 +144,13 @@ struct Views {
   swt::View v[K];
 };
 
+// The Montgomery product and square on the carry chains of field_arith.cuh
+// (mont_mul_cc, mont_sqr): the words of swt::mont_mul.
 __device__ __forceinline__ void mul(Fe& r, const Fe& a, const Fe& b, const Mod& M) {
-  swt::mont_mul<N>(r, a, b, M);
+  swt::mont_mul_cc<N>(r, a, b, M);
+}
+__device__ __forceinline__ void sqr(Fe& r, const Fe& a, const Mod& M) {
+  swt::mont_sqr<N>(r, a, M);
 }
 __device__ __forceinline__ void add(Fe& r, const Fe& a, const Fe& b, const Mod& M) {
   swt::mod_add<N>(r, a, b, M);
@@ -121,21 +160,21 @@ __device__ __forceinline__ void sub(Fe& r, const Fe& a, const Fe& b, const Mod& 
 }
 
 // (X3, Y3, Z3) = 2 (X1, Y1, Z1), dbl-2009-l with a = 0, in the operation
-// order of g1_limb.double.
+// order of g1_limb.double.  The outputs must not alias the inputs.
 __device__ __forceinline__ void dbl(Fe& X3, Fe& Y3, Fe& Z3, const Fe& X1, const Fe& Y1,
                                     const Fe& Z1, const Mod& M) {
   Fe A, Bs, C, D, E, t;
-  mul(A, X1, X1, M);
-  mul(Bs, Y1, Y1, M);
-  mul(C, Bs, Bs, M);
+  sqr(A, X1, M);
+  sqr(Bs, Y1, M);
+  sqr(C, Bs, M);
   add(t, X1, Bs, M);
-  mul(D, t, t, M);
+  sqr(D, t, M);
   sub(D, D, A, M);
   sub(D, D, C, M);
   add(D, D, D, M);
   add(E, A, A, M);
   add(E, E, A, M);
-  mul(X3, E, E, M);  // F
+  sqr(X3, E, M);  // F
   add(t, D, D, M);
   sub(X3, X3, t, M);
   add(C, C, C, M);  // 8C
@@ -174,8 +213,8 @@ __device__ __forceinline__ void add_complete(Fe& X3, Fe& Y3, Fe& Z3, const Fe& X
                                              const Fe& Z1, const Fe& X2, const Fe& Y2,
                                              const Fe& Z2, const Mod& M) {
   Fe Z1Z1, Z2Z2, U1, S1, H, rr, I, J, t;
-  mul(Z1Z1, Z1, Z1, M);
-  mul(Z2Z2, Z2, Z2, M);
+  sqr(Z1Z1, Z1, M);
+  sqr(Z2Z2, Z2, M);
   mul(U1, X1, Z2Z2, M);
   mul(H, X2, Z1Z1, M);  // U2
   mul(S1, Y1, Z2, M);
@@ -188,10 +227,10 @@ __device__ __forceinline__ void add_complete(Fe& X3, Fe& Y3, Fe& Z3, const Fe& X
   const bool r_zero = swt::is_zero<N>(rr);
   add(rr, rr, rr, M);   // r2 = 2 r
   add(t, H, H, M);
-  mul(I, t, t, M);
+  sqr(I, t, M);
   mul(J, H, I, M);
   mul(U1, U1, I, M);    // V = U1 I
-  mul(X3, rr, rr, M);
+  sqr(X3, rr, M);
   sub(X3, X3, J, M);
   add(t, U1, U1, M);
   sub(X3, X3, t, M);
@@ -201,7 +240,7 @@ __device__ __forceinline__ void add_complete(Fe& X3, Fe& Y3, Fe& Z3, const Fe& X
   mul(Y3, rr, t, M);
   sub(Y3, Y3, J, M);
   add(t, Z1, Z2, M);
-  mul(t, t, t, M);
+  sqr(t, t, M);
   sub(t, t, Z1Z1, M);
   sub(t, t, Z2Z2, M);
   mul(Z3, t, H, M);
@@ -245,7 +284,7 @@ __device__ __forceinline__ void madd_complete(Fe& X3, Fe& Y3, Fe& Z3, const Fe& 
                                               const Fe& Z1, const Fe& X2, const Fe& Y2,
                                               const Mod& M) {
   Fe Z1Z1, H, rr, HH, I, J, t;
-  mul(Z1Z1, Z1, Z1, M);
+  sqr(Z1Z1, Z1, M);
   mul(H, X2, Z1Z1, M);  // U2
   mul(rr, Y2, Z1, M);
   mul(rr, rr, Z1Z1, M); // S2
@@ -253,13 +292,13 @@ __device__ __forceinline__ void madd_complete(Fe& X3, Fe& Y3, Fe& Z3, const Fe& 
   sub(rr, rr, Y1, M);   // r = S2 - Y1
   const bool h_zero = swt::is_zero<N>(H);
   const bool r_zero = swt::is_zero<N>(rr);
-  mul(HH, H, H, M);
+  sqr(HH, H, M);
   add(t, HH, HH, M);
   add(I, t, t, M);
   mul(J, H, I, M);
   add(rr, rr, rr, M);   // r2 = 2 r
   mul(I, X1, I, M);     // V = X1 I
-  mul(X3, rr, rr, M);
+  sqr(X3, rr, M);
   sub(X3, X3, J, M);
   add(t, I, I, M);
   sub(X3, X3, t, M);
@@ -269,7 +308,7 @@ __device__ __forceinline__ void madd_complete(Fe& X3, Fe& Y3, Fe& Z3, const Fe& 
   mul(Y3, rr, t, M);
   sub(Y3, Y3, J, M);
   add(t, Z1, H, M);
-  mul(t, t, t, M);
+  sqr(t, t, M);
   sub(t, t, Z1Z1, M);
   sub(Z3, t, HH, M);
 
@@ -484,6 +523,122 @@ cudaError_t launch_combine(const CombineArgs& a, const Mod& M, cudaStream_t stre
                                      dim3(kCombineThreads), params, 0, stream);
 }
 
+// ---------------------------------------------------------- the fixed base --
+
+constexpr int kWindows = 32;         // 8-bit digits of a 256-bit scalar
+constexpr int kWindowRows = 256;     // rows a window: d 2^(8w) G, d = 0 .. 255
+constexpr int kRowVecs = 3 * N / 4;  // a packed row, X, Y, Z words: nine 16-byte vectors
+constexpr int kFixedBaseThreads = 128;
+constexpr int kFixedBaseBlocksPerSm = 2;
+
+struct FixedBaseArgs {
+  swt::View scalars;  // [16, lanes] 16-bit limbs of the standard-form scalars
+  const int4* table;  // [kWindows * kWindowRows, 36] words: X, Y, Z of row 256 w + d
+  int64_t lanes;
+  int32_t* out;  // [3, 24, lanes]
+};
+
+// Words 4c .. 4c + 3 of x from one 16-byte vector.
+__device__ __forceinline__ void put_vec(Fe& x, int c, const int4 v) {
+  x[4 * c] = static_cast<uint32_t>(v.x);
+  x[4 * c + 1] = static_cast<uint32_t>(v.y);
+  x[4 * c + 2] = static_cast<uint32_t>(v.z);
+  x[4 * c + 3] = static_cast<uint32_t>(v.w);
+}
+
+__device__ __forceinline__ void load_row(Fe& X, Fe& Y, Fe& Z, const int4* row) {
+#pragma unroll
+  for (int c = 0; c < N / 4; ++c) {
+    put_vec(X, c, __ldg(row + c));
+    put_vec(Y, c, __ldg(row + N / 4 + c));
+    put_vec(Z, c, __ldg(row + N / 2 + c));
+  }
+}
+
+// Row 256 w + d of lane j's window w: d is byte w & 1 of limb row w >> 1.
+__device__ __forceinline__ const int4* window_row(const FixedBaseArgs& a, int64_t j, int w) {
+  const uint32_t limb = static_cast<uint32_t>(
+      a.scalars.ptr[(w >> 1) * a.scalars.row_stride + j * a.scalars.col_stride]);
+  const uint32_t d = (limb >> (8 * (w & 1))) & 0xFFu;
+  return a.table + (static_cast<int64_t>(w) * kWindowRows + d) * kRowVecs;
+}
+
+// (X, Y, Z) += (X2, Y2, Z2) for two points neither of which is the
+// identity: add_complete's values.  The equal-x cases double (H = 0, r = 0)
+// or cancel (H = 0, r != 0); the general formula computes
+// Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H first, after which neither Z1 nor Z2
+// is read, and writes X3 and Y3 over X1 and Y1, which only U1 and S1 read.
+__device__ __forceinline__ void add_points(Fe& X, Fe& Y, Fe& Z, const Fe& X2, const Fe& Y2,
+                                           const Fe& Z2, const Mod& M) {
+  Fe Z1Z1, Z2Z2, U1, S1, H, rr, t;
+  sqr(Z1Z1, Z, M);
+  sqr(Z2Z2, Z2, M);
+  mul(U1, X, Z2Z2, M);
+  mul(H, X2, Z1Z1, M);  // U2
+  mul(S1, Y, Z2, M);
+  mul(S1, S1, Z2Z2, M);
+  mul(rr, Y2, Z, M);
+  mul(rr, rr, Z1Z1, M);  // S2
+  sub(H, H, U1, M);      // H = U2 - U1
+  sub(rr, rr, S1, M);    // r = S2 - S1
+  if (swt::is_zero<N>(H)) {
+    Fe X3, Y3, Z3;
+    if (swt::is_zero<N>(rr)) {
+      dbl(X3, Y3, Z3, X, Y, Z, M);
+    } else {
+      set_identity(X3, Y3, Z3, M);
+    }
+    swt::copy<N>(X, X3);
+    swt::copy<N>(Y, Y3);
+    swt::copy<N>(Z, Z3);
+    return;
+  }
+  add(t, Z, Z2, M);
+  sqr(t, t, M);
+  sub(t, t, Z1Z1, M);
+  sub(t, t, Z2Z2, M);
+  mul(Z, t, H, M);  // Z3
+  add(rr, rr, rr, M);  // r2 = 2 r
+  add(t, H, H, M);
+  sqr(Z1Z1, t, M);        // I = (2 H)^2
+  mul(Z2Z2, H, Z1Z1, M);  // J = H I
+  mul(U1, U1, Z1Z1, M);   // V = U1 I
+  sqr(X, rr, M);
+  sub(X, X, Z2Z2, M);
+  add(t, U1, U1, M);
+  sub(X, X, t, M);         // X3 = r2^2 - J - 2 V
+  mul(Z2Z2, S1, Z2Z2, M);  // S1 J
+  add(Z2Z2, Z2Z2, Z2Z2, M);
+  sub(t, U1, X, M);
+  mul(Y, rr, t, M);
+  sub(Y, Y, Z2Z2, M);  // Y3 = r2 (V - X3) - 2 S1 J
+}
+
+// One thread a lane walks all 32 windows with its accumulator in
+// registers: the identity plus window 0's row is that row; then each
+// window's row is loaded and added, the complete add's selects taken as
+// branches in its order (p = identity -> q wins over q = identity -> p).
+__global__ void __launch_bounds__(kFixedBaseThreads, kFixedBaseBlocksPerSm)
+    g1_fixed_base_kernel(FixedBaseArgs a, Mod M) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kFixedBaseThreads + threadIdx.x;
+  if (j >= a.lanes) return;
+  Fe X, Y, Z;
+  load_row(X, Y, Z, window_row(a, j, 0));
+#pragma unroll 1
+  for (int w = 1; w < kWindows; ++w) {
+    Fe X2, Y2, Z2;
+    load_row(X2, Y2, Z2, window_row(a, j, w));
+    if (swt::is_zero<N>(Z)) {
+      swt::copy<N>(X, X2);
+      swt::copy<N>(Y, Y2);
+      swt::copy<N>(Z, Z2);
+    } else if (!swt::is_zero<N>(Z2)) {
+      add_points(X, Y, Z, X2, Y2, Z2, M);
+    }
+  }
+  store_point(a.out, a.lanes, j, X, Y, Z);
+}
+
 template <int K>
 Views<K> unpack_views(const int64_t* views) {
   Views<K> v;
@@ -570,14 +725,36 @@ int swt_g1_bucket_combine(const int64_t* in_views, int32_t* buf0, int32_t* buf1,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `scalars`: [16, lanes] int32 16-bit limbs of standard-form scalars, limb
+// row i of lane j at scalars[i * row_stride + j * col_stride]; `table`:
+// [8192, 36] int32, 16-byte aligned, row 256 w + d the words of X, Y and Z
+// of d 2^(8w) G; `out`: a dense [3, 24, lanes] int32 array.  Launches on
+// `stream` like the adds above.
+int swt_g1_fixed_base(const int32_t* scalars, int64_t row_stride, int64_t col_stride,
+                      const int32_t* table, int64_t lanes, int32_t* out, const uint32_t* p,
+                      uint32_t n0, const uint32_t* one, void* stream) {
+  if (lanes <= 0) return 0;
+  FixedBaseArgs a;
+  a.scalars.ptr = scalars;
+  a.scalars.row_stride = row_stride;
+  a.scalars.col_stride = col_stride;
+  a.table = reinterpret_cast<const int4*>(table);
+  a.lanes = lanes;
+  a.out = out;
+  g1_fixed_base_kernel<<<swt::grid_for(lanes, kFixedBaseThreads), kFixedBaseThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a, swt::make_modulus<N>(p, n0, one));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Registers a thread and local memory a thread (spills) of each kernel as
 // compiled: out[0..1] for the add, out[2..3] for the accumulate, out[4..5]
-// for the combine.
+// for the combine, out[6..7] for the fixed base.
 int swt_g1_kernel_resources(int* out) {
   const void* kernels[] = {reinterpret_cast<const void*>(g1_fused_add_kernel),
                            reinterpret_cast<const void*>(g1_madd_accumulate_kernel),
-                           reinterpret_cast<const void*>(g1_bucket_combine_kernel)};
-  for (int k = 0; k < 3; ++k) {
+                           reinterpret_cast<const void*>(g1_bucket_combine_kernel),
+                           reinterpret_cast<const void*>(g1_fixed_base_kernel)};
+  for (int k = 0; k < 4; ++k) {
     cudaFuncAttributes attr;
     const cudaError_t err = cudaFuncGetAttributes(&attr, kernels[k]);
     if (err != cudaSuccess) return static_cast<int>(err);

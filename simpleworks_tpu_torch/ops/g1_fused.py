@@ -1,9 +1,10 @@
-"""Complete BLS12-377 G1 point adds in one launch: the three kernels of
+"""Complete BLS12-377 G1 point adds in one launch: the four kernels of
 ``csrc/g1_kernels.cu`` and their plain PyTorch versions.
 
 Port of ``simpleworks_tpu/ops/g1_fused_pallas.py``, of the MSM's bucket
-accumulate scan around its mixed add, and of its bucket combine (the
-segment fold and the two suffix passes) around its Jacobian add.  A point is a tuple of limb-major
+accumulate scan around its mixed add, of its bucket combine (the segment
+fold and the two suffix passes) around its Jacobian add, and of the setup's
+fixed-base scan around that add.  A point is a tuple of limb-major
 ``[24, B]`` ``torch.int32`` Fq Montgomery planes: Jacobian (X, Y, Z) with
 Z = 0 the identity, or affine (x, y) with x = y = 0 the identity.
 
@@ -16,6 +17,10 @@ Z = 0 the identity, or affine (x, y) with x = y = 0 the identity.
 * :func:`bucket_combine` — a group's bucket sums to its window sums
   Σ_d d·S_d: the segment fold, then two suffix passes of Jacobian adds,
   every step in one launch.
+* :func:`fixed_base` — the SRS's fixed-base powers s_j·G: each lane walks
+  the 32 byte digits of its scalar through a packed window table of
+  d·2^(8w)·G, adding one row a window, all windows in one launch (the scan
+  of ``simpleworks_tpu/ops/srs_device.py`` around the Jacobian add).
 
 The adds are complete: the equal-x cases double (dbl-2009-l) or cancel, and
 the identities pass the other operand through, selected in the reference
@@ -32,17 +37,23 @@ import ctypes
 
 import torch
 
-from ..fields.device import FQ
+from ..fields.device import FQ, FR
 from ._build import LAUNCHES, count_launch
 from .mont_mul import (
     _check, _on_cuda, _raise_on, mod_add_plain, mod_sub_plain, mont_mul_plain,
 )
 
-__all__ = ["fused_add", "fused_madd", "madd_accumulate", "bucket_combine", "fused_add_plain",
-           "fused_madd_plain", "madd_accumulate_plain", "bucket_combine_plain"]
+__all__ = ["fused_add", "fused_madd", "madd_accumulate", "bucket_combine", "fixed_base",
+           "fused_add_plain", "fused_madd_plain", "madd_accumulate_plain", "bucket_combine_plain",
+           "fixed_base_plain", "pack_table", "unpack_table", "walk_windows"]
 
 #: 16-bit limbs of an affine table row: x, then y
 ROW_LIMBS = 2 * FQ.n_limbs
+#: the fixed base's window table: 32 windows of 8-bit digits, 256 rows each
+#: (row 256·w + d holds d·2^(8w)·G), a row the 32-bit words of X, Y and Z
+WINDOWS = 32
+WINDOW_ROWS = 256
+TABLE_WORDS = 3 * FQ.n_words
 
 
 class PlainFq:
@@ -247,6 +258,41 @@ def bucket_combine_plain(acc3, w_count: int, segs: int, b: int, add=fused_add_pl
     return tuple(a[:, :, 0] for a in t)
 
 
+def pack_table(planes: torch.Tensor) -> torch.Tensor:
+    """[3, 24, R] int32 Jacobian limb planes -> the fixed-base kernel's
+    [R, 36] int32 rows: the words of X, then Y, then Z, word k holding limbs
+    2k (low half) and 2k + 1."""
+    words = planes[:, 0::2].to(torch.int64) | (planes[:, 1::2].to(torch.int64) << 16)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)  # the int32 bit pattern
+    return words.reshape(TABLE_WORDS, -1).t().contiguous().to(torch.int32)
+
+
+def unpack_table(table: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`pack_table`: [R, 36] rows -> [3, 24, R] planes."""
+    words = table.t().to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([words & 0xFFFF, words >> 16], dim=1).reshape(
+        3, FQ.n_limbs, -1).to(torch.int32)
+
+
+def walk_windows(planes: torch.Tensor, scalars_std: torch.Tensor, add, acc=None):
+    """Σ_w row 256·w + (byte w of s_j) of the [3, 24, 8192] window ``planes``
+    for each lane j of ``scalars_std``: one gather of the rows and one
+    ``add`` of whole planes a window, starting from ``acc`` (from window 0's
+    rows when None, which is what the add of them to the identity gives)."""
+    for w in range(WINDOWS):
+        digit = (scalars_std[w >> 1] >> (8 * (w & 1))) & 0xFF
+        pts = planes.index_select(2, (digit + WINDOW_ROWS * w).to(torch.int64))
+        row = (pts[0], pts[1], pts[2])
+        acc = row if acc is None else add(acc, row)
+    return acc
+
+
+def fixed_base_plain(table: torch.Tensor, scalars_std: torch.Tensor):
+    """The plain version of :func:`fixed_base`, on any device: the window
+    walk over the unpacked table, one ``fused_add_plain`` a window."""
+    return walk_windows(unpack_table(table), scalars_std, fused_add_plain)
+
+
 # ------------------------------------------------------------------ wrappers --
 
 
@@ -353,12 +399,46 @@ def _launch_combine(acc3, w_count: int, segs: int, b: int) -> tuple:
     return out[0], out[1], out[2]
 
 
+def _check_fixed_base(table, scalars_std) -> None:
+    if table.dtype != torch.int32 or tuple(table.shape) != (WINDOWS * WINDOW_ROWS, TABLE_WORDS):
+        raise ValueError(f"expected a [{WINDOWS * WINDOW_ROWS}, {TABLE_WORDS}] int32 window "
+                         f"table, got {table.dtype} {tuple(table.shape)}")
+    if scalars_std.dtype != torch.int32 or scalars_std.dim() != 2 \
+            or scalars_std.shape[0] != FR.n_limbs:
+        raise ValueError(f"expected [{FR.n_limbs}, N] int32 scalar limbs, got "
+                         f"{scalars_std.dtype} {tuple(scalars_std.shape)}")
+    if table.device != scalars_std.device:
+        raise ValueError(f"device mismatch: {table.device} vs {scalars_std.device}")
+
+
+def _launch_fixed_base(table, scalars_std) -> tuple:
+    """One launch of the fixed-base kernel (CUDA tensors)."""
+    from ._build import library
+
+    if not table.is_contiguous() or table.data_ptr() % 16:
+        raise ValueError("the window table's rows are read as 16-byte vectors: pass it "
+                         "contiguous and 16-byte aligned")
+    lanes = scalars_std.shape[1]
+    out = torch.empty((3, FQ.n_limbs, lanes), dtype=torch.int32, device=table.device)
+    if lanes == 0:
+        return out[0], out[1], out[2]
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        rc = library("g1_kernels").swt_g1_fixed_base(
+            scalars_std.data_ptr(), scalars_std.stride(0), scalars_std.stride(1),
+            table.data_ptr(), lanes, out.data_ptr(), FQ.p_words_ptr, FQ.n0_32,
+            FQ.one_words_ptr, stream)
+    _raise_on(rc, "g1_fixed_base")
+    count_launch("g1_fixed_base")
+    return out[0], out[1], out[2]
+
+
 def kernel_resources() -> dict:
     """Registers and local (spill) bytes a thread of each kernel, as the
     card's compiler built them."""
     from ._build import library
 
-    names = ("g1_fused_add", "g1_fused_madd", "g1_bucket_combine")
+    names = ("g1_fused_add", "g1_fused_madd", "g1_bucket_combine", "g1_fixed_base")
     out = (ctypes.c_int * (2 * len(names)))()
     _raise_on(library("g1_kernels").swt_g1_kernel_resources(ctypes.addressof(out)),
               "g1 kernel attributes")
@@ -419,3 +499,16 @@ def bucket_combine(acc3, w_count: int, segs: int, b: int):
     if not _on_cuda(acc3[0]):
         return bucket_combine_plain(acc3, w_count, segs, b)
     return _launch_combine(acc3, w_count, segs, b)
+
+
+def fixed_base(table: torch.Tensor, scalars_std: torch.Tensor):
+    """Lane j: s_j·G as Jacobian ([24, N],)*3 Fq planes, for ``scalars_std``
+    the [16, N] int32 16-bit limbs of standard-form scalars s_j < 2^256 (any
+    strides) and ``table`` the [8192, 36] window table of d·2^(8w)·G
+    (:func:`pack_table` of its planes): the sum over w of row
+    256·w + (byte w of s_j), by the complete Jacobian add.  One kernel launch
+    on CUDA tensors."""
+    _check_fixed_base(table, scalars_std)
+    if not _on_cuda(table):
+        return fixed_base_plain(table, scalars_std)
+    return _launch_fixed_base(table, scalars_std)

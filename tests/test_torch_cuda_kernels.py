@@ -1,8 +1,8 @@
 """The port's CUDA kernels (the field kernels, the NTT's reduce kernel, the
 butterfly NTT's pass kernel and the stage route's bit reversal and stage,
 the fused G1 point add, the MSM's bucket accumulate and its bucket
-combine) against their plain PyTorch versions, on the card (exact
-equality: field arithmetic is exact).
+combine, the setup's fixed base) against their plain PyTorch versions, on
+the card (exact equality: field arithmetic is exact).
 
 Skips without a CUDA device.  On a machine with one:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
@@ -466,6 +466,80 @@ def test_bucket_combine_rejects_bad_inputs(cuda):
         g1_fused.bucket_combine((acc[0], acc[1], acc[2].cpu()), 2, 2, 4)
     with pytest.raises(ValueError):  # one bucket a window
         g1_fused.bucket_combine(acc, 8, 2, 1)
+
+
+def fixed_base_inputs(n, seed, device):
+    """The generator's packed window table, and [16, n] limbs of
+    chip_smoke.fixed_base_crafted's scalars (0, 1, r − 1, one digit a
+    window, 255 below the top; past r the top window's cancelling and
+    doubling sums) followed by seed-made 256-bit values."""
+    from chip_smoke import fixed_base_crafted
+    from simpleworks_tpu_torch.curves.bls12_377 import G1Point
+    from simpleworks_tpu_torch.fields.device import ints_to_limbs
+    from simpleworks_tpu_torch.ops import srs_device
+
+    rng = np.random.default_rng(seed)
+    scalars = (fixed_base_crafted() + [int.from_bytes(rng.bytes(32), "little")
+                                       for _ in range(n)])[:n]
+    std = torch.from_numpy(ints_to_limbs(scalars, 16).astype(np.int32)).to(device)
+    return srs_device._packed_table(G1Point.generator(), device), std
+
+
+@pytest.mark.parametrize("n", [1, 33, 4099])
+def test_fixed_base_matches_plain(cuda, n):
+    """The fixed-base kernel against its plain lane walk, one launch counted
+    per call."""
+    from simpleworks_tpu_torch.ops import g1_fused
+
+    table, std = fixed_base_inputs(n, 30, cuda)
+    expected = g1_fused.fixed_base_plain(table, std)
+    before = mm.LAUNCHES["g1_fixed_base"]
+    got = g1_fused.fixed_base(table, std)
+    torch.cuda.synchronize()
+    assert mm.LAUNCHES["g1_fixed_base"] == before + 1
+    assert all(map(torch.equal, got, expected))
+
+
+def test_fixed_base_reads_strided_scalars(cuda):
+    """Scalar limb rows sliced from a wider tensor (row stride 2n), every
+    second column (column stride 2) and transposed (row stride 1, column
+    stride 16)."""
+    from simpleworks_tpu_torch.ops import g1_fused
+
+    n = 300
+    table, std = fixed_base_inputs(n, 31, cuda)
+    expected = g1_fused.fixed_base_plain(table, std)
+    sliced = torch.cat([std, std], dim=1)[:, n:]
+    every_second = torch.stack([std, std], dim=2).reshape(16, 2 * n)[:, ::2]
+    transposed = std.t().contiguous().t()
+    for view in (sliced, every_second, transposed):
+        assert not view.is_contiguous()
+        assert all(map(torch.equal, g1_fused.fixed_base(table, view), expected))
+
+
+def test_fixed_base_rejects_bad_inputs(cuda):
+    from simpleworks_tpu_torch.ops import g1_fused
+
+    table, std = fixed_base_inputs(8, 32, cuda)
+    flat = torch.empty(table.numel() + 1, dtype=torch.int32, device=cuda)
+    before = mm.LAUNCHES["g1_fixed_base"]
+    for args in ((table[:, :35], std),              # a row of 35 words
+                 (table.to(torch.int64), std),      # not int32
+                 (table, std[:15]),                 # 15 limb rows
+                 (table, std.to(torch.int64)),      # int64 limbs
+                 (table.cpu(), std),                # a CPU table for card scalars
+                 (flat[1:].view(table.shape), std),  # rows not 16-byte aligned
+                 (table.t().contiguous().t(), std)):  # rows not contiguous
+        with pytest.raises(ValueError):
+            g1_fused.fixed_base(*args)
+    assert mm.LAUNCHES["g1_fixed_base"] == before
+
+
+def test_fixed_base_kernel_resources(cuda):
+    from simpleworks_tpu_torch.ops import g1_fused
+
+    res = g1_fused.kernel_resources()["g1_fixed_base"]
+    assert 0 < res["registers"] <= 255 and res["local_bytes"] >= 0
 
 
 def test_default_device_is_the_card(cuda):
