@@ -1,0 +1,4 @@
+"""kernels.commit: every kernel the card ran in the traced window, the program's
+and PyTorch's alike (copies and fills not counted), a commit."""
+
+from benchmark.lib.readers import kernels as read  # noqa: F401

@@ -1,0 +1,4 @@
+"""launches.commit: the port's kernel launches (ops/_build.py LAUNCHES) a
+commit in the window."""
+
+from benchmark.lib.readers import launches as read  # noqa: F401
