@@ -16,6 +16,11 @@ printed as one JSON line, any failure raising:
    seed-made inputs with the edge values 0, 1 and p-1 mixed in, at the
    shapes the main path gives it, compared exactly (field arithmetic is
    exact), and timed;
+   then the Marlin mask draw (csrc/mask_kernels.cu) at the prove's 3n =
+   3 x 2^17 coefficients, from a stream position inside a ChaCha block,
+   against its numpy plain version (equal limbs and words consumed), its
+   two kernels timed beside their bound, the wrapper's call (with its one
+   fetch) and the plain version;
 4. the fused G1 point add and the mixed add (the one-row case of the
    bucket-accumulate kernel) against their plain versions and against the
    composed adds over the field kernels, exactly, at the MSM's lane widths
@@ -277,15 +282,22 @@ POW_SLICE = 1 << 14
 #: the pow's first and last POW_HOST_LANES lanes at every shape are also held
 #: to host pow(), which shares no code with the kernel's exponent schedule
 POW_HOST_LANES = 8
+#: the Marlin mask's n (the bench circuit's domain H: 3n coefficients a
+#: prove) and the keystream words taken before the draw (not a multiple of
+#: 8 or 16: attempts straddle ChaCha blocks)
+MASK_N = 1 << 17
+MASK_START = 13
 
 FIELD_SOURCE = "simpleworks_tpu_torch/csrc/field_kernels.cu"
+MASK_SOURCE = "simpleworks_tpu_torch/csrc/mask_kernels.cu"
 NTT_SOURCE = "simpleworks_tpu_torch/csrc/ntt_kernels.cu"
 G1_SOURCE = "simpleworks_tpu_torch/csrc/g1_kernels.cu"
 SOURCES = {"mont_mul": FIELD_SOURCE, "mod_add": FIELD_SOURCE, "mod_sub": FIELD_SOURCE,
            "mont_pow": FIELD_SOURCE, "ntt_reduce": NTT_SOURCE, "ntt_bitrev": NTT_SOURCE,
            "ntt_butterfly": NTT_SOURCE, "ntt_pass": NTT_SOURCE,
            "g1_fused_add": G1_SOURCE, "g1_fused_madd": G1_SOURCE,
-           "g1_bucket_combine": G1_SOURCE, "g1_fixed_base": G1_SOURCE}
+           "g1_bucket_combine": G1_SOURCE, "g1_fixed_base": G1_SOURCE,
+           "mask_draw": MASK_SOURCE}
 REPLACES = {
     "mont_mul": "simpleworks_tpu/ops/mont_mul_pallas.py:105",
     "mod_add": "simpleworks_tpu/ops/mont_mul_pallas.py:130",
@@ -305,6 +317,8 @@ REPLACES = {
     "g1_bucket_combine": "simpleworks_tpu/ops/g1_fused_pallas.py:112",
     # the add kernel once more, run by the setup's scan (SCANS)
     "g1_fixed_base": "simpleworks_tpu/ops/g1_fused_pallas.py:112",
+    # replaces no TPU kernel: the JAX package draws the mask on the host
+    "mask_draw": "none (host draw: simpleworks_tpu/marlin/ahp.py:289)",
 }
 #: the reference's scans around a point-add kernel that one launch of the
 #: port's kernel runs whole
@@ -469,10 +483,11 @@ def g1_inputs(n: int, seed: int, device, pool: int = 16) -> dict:
 
 
 def check_kernels(device, fr_lanes: int = FR_LANES, fq_lanes: int = FQ_LANES,
-                  pow_shapes=None, pow_prove_lanes=POW_PROVE_LANES) -> dict:
+                  pow_shapes=None, pow_prove_lanes=POW_PROVE_LANES, mask_n: int = MASK_N) -> dict:
     """Each kernel against its plain version on the same inputs: exact
     equality, and both times; the pow also at the prove's widths, checked
-    on a slice, and the ends of every pow row against host pow()."""
+    on a slice, and the ends of every pow row against host pow(); the mask
+    draw at 3 ``mask_n`` coefficients (check_mask_draw)."""
     import torch
 
     from simpleworks_tpu_torch.fields.device import FQ, FR, from_mont
@@ -537,6 +552,7 @@ def check_kernels(device, fr_lanes: int = FR_LANES, fq_lanes: int = FQ_LANES,
         results["mont_pow"][-1]["checked_lanes"] = f"first and last {POW_SLICE}"
         check_host_pow(x, got, e, FR)
         del x, got
+    results["mask_draw"] = [check_mask_draw(device, mask_n)]
     for name, rows in results.items():
         for row in rows:
             if not row["equal"]:
@@ -548,6 +564,80 @@ def check_kernels(device, fr_lanes: int = FR_LANES, fq_lanes: int = FQ_LANES,
         for row in results["mont_pow"]:
             row.update(resources[row["shape"][0] // 2])
     return results
+
+
+def check_mask_draw(device, n: int = MASK_N, start: int = MASK_START, seed: int = 19) -> dict:
+    """The mask kernel against its plain version at the prove's 3n
+    coefficients from keystream word ``start``: equal limbs and words
+    consumed, the rng left on the same word.  Timed: the kernels alone (one
+    entry call and its scratch fill, CUDA events), the wrapper's call with
+    its fetch and the rng's skip (host clock), and the plain version."""
+    import torch
+
+    from simpleworks_tpu_torch.fields.device import FR
+    from simpleworks_tpu_torch.ops import mask_draw as md
+    from simpleworks_tpu_torch.utils.rng import chacha12_rng
+
+    def positioned():
+        rng = chacha12_rng(seed.to_bytes(32, "little"))
+        rng.take_words(start)
+        return rng
+
+    card, host = positioned(), positioned()
+    t0 = time.perf_counter()
+    got = md.draw_mask(card, n, device)
+    sync(device)
+    first_call_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want, consumed = md.mask_draw_plain(host.key_words, host.rounds, host.word_position, n)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    host.skip_words(consumed)
+    equal = bool(torch.equal(got.cpu(), want)) and card.word_position == host.word_position
+    err = int((got.cpu().to(torch.int64) - want.to(torch.int64)).abs().max())
+    if not equal:
+        raise AssertionError(f"the mask kernel disagrees with its plain version at n = {n}")
+    row = {"shape": list(got.shape), "equal": equal, "max_abs_err": err,
+           "words_consumed": consumed, "start": start, "plain_ms": plain_ms,
+           "first_call_ms": first_call_ms}
+    if device.type == "cuda":
+        count = 3 * n
+        out = torch.empty((FR.n_limbs, count), dtype=torch.int32, device=device)
+
+        def launch():
+            md.launch_draw(card.key_words, card.rounds, start, md.attempts_for(count), out, 0,
+                           count, n)
+
+        row["ms"] = time_ms(launch, device, inner=20, queue_ahead=True)
+        sync(device)
+        if not torch.equal(out, got):
+            raise AssertionError("the timed mask kernel calls wrote another mask")
+        calls = []
+        for _ in range(5):
+            rng = positioned()
+            sync(device)
+            t0 = time.perf_counter()
+            md.draw_mask(rng, n, device)
+            calls.append((time.perf_counter() - t0) * 1e3)
+        row["call_ms"] = statistics.median(calls)
+    else:
+        row["ms"] = row["call_ms"] = first_call_ms
+    return row
+
+
+def mask_bound_ms(row: dict, clock_mhz: float) -> tuple[float, str]:
+    """The least time the card could take for the mask draw of ``row``
+    (check_mask_draw): bytes, the 64 bytes of int32 limbs of each
+    coefficient written once (the key and the modulus are parameters);
+    operations, the ChaCha12 blocks that hold the words the draw consumed,
+    each 12 rounds of 4 quarter rounds of 12 32-bit adds, xors and rotates,
+    plus its 16 final adds, at SMS x 64 a clock (the compares and the limb
+    split not counted)."""
+    nbytes = 64 * row["shape"][1]
+    blocks = -(-(row["start"] % 16 + row["words_consumed"]) // 16)
+    ops = blocks * (12 * 4 * 12 + 16)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (SMS * IMAD_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_g1(device, widths=G1_LANES) -> dict:
@@ -2438,7 +2528,7 @@ def main(argv: list[str]) -> int:
     # path runs no setup (the SRS is the KZG path's memo)
     msm = ["g1_fused_madd", "g1_bucket_combine"]
     kzg = ["mont_mul", "mont_pow", "g1_fixed_base", *msm]
-    prover = [*FIELD_KERNELS, "ntt_pass", "g1_fixed_base", *msm]
+    prover = [*FIELD_KERNELS, "ntt_pass", "g1_fixed_base", *msm, "mask_draw"]
     paths = {}
     paths["kzg"] = drive_counting_pow("KZG", kzg, lambda: run_slice(device))
     emit({"kzg_slice": paths["kzg"]})
@@ -2522,6 +2612,8 @@ def main(argv: list[str]) -> int:
                 row["bound_ms"], row["bound_by"] = combine_bound_ms(row, clock_mhz)
             elif name == "g1_fixed_base":
                 row["bound_ms"], row["bound_by"] = fixed_base_bound_ms(row, clock_mhz)
+            elif name == "mask_draw":
+                row["bound_ms"], row["bound_by"] = mask_bound_ms(row, clock_mhz)
             elif name in BUTTERFLY_KERNELS:
                 row["bound_ms"], row["bound_by"] = butterfly_bound_ms(name, row, clock_mhz)
             elif "depth" in row:
@@ -2545,7 +2637,8 @@ def main(argv: list[str]) -> int:
             "shapes": [{k: r[k] for k in ("shape", "depth", "windows", "segments", "buckets", "ms",
                                           "plain_ms", "plain_shape", "checked_lanes", "route_ms",
                                           "inverse", "stages", "passes", "stage_route_ms",
-                                          "library_ms", "bound_ms", "registers", "local_bytes")
+                                          "library_ms", "bound_ms", "registers", "local_bytes",
+                                          "call_ms", "words_consumed")
                         if k in r}
                        for r in rows],
         })

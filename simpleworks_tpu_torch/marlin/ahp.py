@@ -22,8 +22,9 @@ import torch
 from ..device import resolve
 from ..errors import ensure
 from ..fields import dvec
-from ..fields.bls12_377 import FR_MODULUS, Fr
+from ..fields.bls12_377 import FR_MODULUS
 from ..fields.frvec import FrVec
+from ..ops import mask_draw
 from ..poly.dense import DensePoly
 from ..poly.domain import Radix2Domain
 
@@ -174,16 +175,13 @@ def x_poly_eval_host(instance: list[int], ell: int, point: int) -> int:
     return acc
 
 
-def sample_mask_poly(info: IndexInfo, rng) -> list[int]:
-    """Coefficients of a random s(X) of degree 3n − 1 with Σ_{κ∈H} s(κ) = 0
-    (the outer-sumcheck zk mask; the reference's draws, in its order).
-    Σ_H X^k = 0 unless n | k, so the H-sum is n·Σ_j coeffs[j·n]; zero it by
-    fixing coeffs[0]."""
-    n = info.domain_h_size
-    coeffs = Fr.rand_vec(rng, 3 * n)
-    stride_sum = sum(coeffs[j] for j in range(n, 3 * n, n)) % P
-    coeffs[0] = (-stride_sum) % P
-    return coeffs
+def sample_mask_poly(info: IndexInfo, rng, device) -> torch.Tensor:
+    """[16, 3n] Montgomery limbs on ``device`` of a random s(X) of degree
+    3n − 1 with Σ_{κ∈H} s(κ) = 0 (the outer-sumcheck zk mask; the
+    reference's draws, ``Fr.rand_vec(rng, 3n)``, in its order).  Σ_H X^k = 0
+    unless n | k, so the H-sum is n·Σ_j coeffs[j·n]; zero it by fixing
+    coeffs[0].  Drawn where it is used (:mod:`..ops.mask_draw`)."""
+    return mask_draw.draw_mask(rng, info.domain_h_size, device)
 
 
 # ---------------------------------------------------------------- verifier ----

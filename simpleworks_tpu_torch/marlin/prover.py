@@ -154,10 +154,7 @@ def prove(pk, cs, rng):
         z_poly = dvec.add(dvec.pad_to(z_poly, n + ell + 1), _sparse_poly(
             n + ell + 1, [(0, r_w), (ell, P - r_w), (n, P - r_w), (n + ell, r_w)], dev))
     with PROVER_TIMER.region("host.mask_draws"):
-        mask_coeffs = ahp.sample_mask_poly(info, rng)
-    with PROVER_TIMER.region("ahp.round1"):
-        mask = dvec.from_ints(mask_coeffs, dev)
-        del mask_coeffs
+        mask = ahp.sample_mask_poly(info, rng, dev)
 
     comms: dict[str, Commitment] = {}
     rands: dict[str, Randomness] = {}

@@ -75,12 +75,16 @@ SIGNATURES = {
         "swt_g1_fixed_base": [_P, _I64, _I64, _P, _I64, _P, _P, ctypes.c_uint32, _P, _P],
         "swt_g1_kernel_resources": [_P],
     },
+    "mask_kernels": {
+        "swt_mask_draw": [_P, ctypes.c_int, _I64, _I64, _P, _I64, _I64, _I64, _I64, _P,
+                          ctypes.c_uint32, _P, ctypes.c_uint32, _P, _I64, _P],
+    },
 }
 
 #: kernel launches by kernel name since the last :func:`reset_launches`
 LAUNCHES = {"mont_mul": 0, "mod_add": 0, "mod_sub": 0, "mont_pow": 0, "ntt_reduce": 0,
             "ntt_bitrev": 0, "ntt_butterfly": 0, "ntt_pass": 0, "g1_fused_add": 0,
-            "g1_fused_madd": 0, "g1_bucket_combine": 0, "g1_fixed_base": 0}
+            "g1_fused_madd": 0, "g1_bucket_combine": 0, "g1_fixed_base": 0, "mask_draw": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()

@@ -124,6 +124,14 @@ def _chacha_blocks_np(key_words: tuple[int, ...], counter0: int, nblocks: int, r
     return x.T.reshape(-1)  # [block, word] -> stream order
 
 
+def keystream_words(key_words: tuple[int, ...], rounds: int, start: int, count: int):
+    """Words ``start .. start + count`` of the keystream (numpy uint32): the
+    blocks they fall in, made with the vectorized kernel, then cut."""
+    first, skip = divmod(start, 16)
+    nblocks = (skip + count + 15) // 16
+    return _chacha_blocks_np(key_words, first, nblocks, rounds)[skip : skip + count]
+
+
 class ChaChaRng:
     """ChaCha-based RNG with rand_core ``BlockRng`` word-stream semantics.
 
@@ -184,6 +192,29 @@ class ChaChaRng:
         )
         self.buffer = np.concatenate([np.asarray(words, dtype=np.uint32), rem])
         self.index = 0
+
+    @property
+    def word_position(self) -> int:
+        """The keystream index of the next word a consumer gets (the buffer
+        always holds the stream up to the counter's block, ``unget``
+        included)."""
+        return self.block_counter * 16 - self._remaining()
+
+    def skip_words(self, n: int) -> None:
+        """Moves on ``n`` words, as ``take_words(n)`` would, without making
+        the words passed over: only the blocks from the one the new position
+        falls in are made again.  A draw that read the stream elsewhere from
+        ``word_position`` hands the stream back here."""
+        if n < 0:
+            raise ValueError("cannot skip a negative number of words")
+        if n <= self._remaining():
+            self.index += n
+            return
+        block, offset = divmod(self.word_position + n, 16)
+        self.buffer, self.index, self.block_counter = None, 0, block
+        if offset:
+            self._refill()
+            self.index = offset
 
     def next_u32(self) -> int:
         if self._remaining() == 0:

@@ -1,8 +1,8 @@
 """The port's CUDA kernels (the field kernels, the NTT's reduce kernel, the
 butterfly NTT's pass kernel and the stage route's bit reversal and stage,
 the fused G1 point add, the MSM's bucket accumulate and its bucket
-combine, the setup's fixed base) against their plain PyTorch versions, on
-the card (exact equality: field arithmetic is exact).
+combine, the setup's fixed base, the Marlin mask draw) against their plain
+versions, on the card (exact equality: field arithmetic is exact).
 
 Skips without a CUDA device.  On a machine with one:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
@@ -552,3 +552,106 @@ def test_default_device_is_the_card(cuda):
     # "cuda" without an index resolves to the card a tensor reports
     assert resolve(cuda) == resolve(None) == x.device
     assert dvec.to_ints(dvec.ifft(dvec.fft(x[:, :2], 2), 2)) == [1, 2]
+
+
+#: words taken from the rng before a mask draw: on and off an attempt's and
+#: a ChaCha block's edges
+MASK_STARTS = (0, 3, 8, 13)
+
+
+def _mask_rng(rounds, start):
+    from simpleworks_tpu_torch.utils.rng import ChaChaRng
+
+    rng = ChaChaRng(bytes(range(3, 35)), rounds)
+    if start:
+        rng.take_words(start)
+    return rng
+
+
+@pytest.mark.parametrize("start", MASK_STARTS)
+@pytest.mark.parametrize("n", [1 << 3, 1 << 10, 1 << 17])
+@pytest.mark.parametrize("rounds", [12, 20], ids=["chacha12", "chacha20"])
+def test_mask_draw_matches_plain(cuda, rounds, n, start):
+    """The kernel's mask against the plain draw's, limb for limb, one kernel
+    call, and the rng left on the same word."""
+    from simpleworks_tpu_torch.ops import mask_draw as md
+
+    from simpleworks_tpu_torch.ops._build import LAUNCHES
+
+    card, host = _mask_rng(rounds, start), _mask_rng(rounds, start)
+    before = LAUNCHES["mask_draw"]
+    got = md.draw_mask(card, n, cuda)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mask_draw"] == before + 1
+    want = md.draw_mask(host, n, torch.device("cpu"))
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    assert card.word_position == host.word_position
+    assert np.array_equal(card.take_words(40), host.take_words(40))
+
+
+@pytest.mark.parametrize("n", [1 << 3, 1 << 9])
+def test_mask_draw_goes_on_after_a_short_batch(cuda, monkeypatch, n):
+    """Batches far too small for the mask: each kernel call goes on from the
+    word where the last stopped, and only the last applies the fix-up."""
+    from simpleworks_tpu_torch.ops import mask_draw as md
+    from simpleworks_tpu_torch.ops._build import LAUNCHES
+
+    monkeypatch.setattr(md, "attempts_for", lambda remaining: max(1, remaining // 3))
+    card, host = _mask_rng(12, 5), _mask_rng(12, 5)
+    before = LAUNCHES["mask_draw"]
+    got = md.draw_mask(card, n, cuda)
+    assert LAUNCHES["mask_draw"] - before > 2
+    assert torch.equal(got.cpu(), md.draw_mask(host, n, torch.device("cpu")))
+    assert card.word_position == host.word_position
+
+
+def test_mask_draw_entry_rejects_bad_sizes(cuda):
+    import ctypes
+
+    from simpleworks_tpu_torch.fields.device import FR
+    from simpleworks_tpu_torch.ops import mask_draw as md
+    from simpleworks_tpu_torch.ops._build import library
+
+    fn = library("mask_kernels").swt_mask_draw
+    out = torch.empty((16, 24), dtype=torch.int32, device=cuda)
+    key = (ctypes.c_uint32 * 8)(*range(8))
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def call(rounds=12, start=0, attempts=53, filled=0, remaining=24, n=8, slots=None):
+        grid = -(-attempts // md.ATTEMPTS_PER_BLOCK) if attempts > 0 else 0
+        slots = grid + md.SCRATCH_EXTRA if slots is None else slots
+        scratch = torch.zeros(max(slots, 1), dtype=torch.int64, device=cuda)
+        return fn(ctypes.addressof(key), rounds, start, attempts, out.data_ptr(), 24, filled,
+                  remaining, n, FR.p_words_ptr, FR.n0_32, FR.one_words_ptr, md.TOP_MASK,
+                  scratch.data_ptr(), slots, stream)
+
+    assert call() == 0
+    torch.cuda.synchronize()
+    for bad in ({"rounds": 11}, {"rounds": 0}, {"start": -1}, {"attempts": 0},
+                {"remaining": 0}, {"filled": 1}, {"n": 24}, {"n": -1}, {"slots": 3}):
+        assert call(**bad) != 0, bad
+
+
+def test_card_prove_draws_one_mask_and_matches_cpu_bytes(cuda, monkeypatch):
+    """The test circuit proved on the card and on the CPU from the same rng
+    seed: equal proof bytes, and one mask kernel call on the card."""
+    from simpleworks_tpu_torch import marlin
+    from simpleworks_tpu_torch.examples import test_circuit
+    from simpleworks_tpu_torch.marlin.serialization import serialize_proof
+    from simpleworks_tpu_torch.ops._build import LAUNCHES
+    from simpleworks_tpu_torch.utils.rng import chacha12_rng
+
+    monkeypatch.setenv("SWTPU_SRS_DISK_CACHE", "0")
+    monkeypatch.setenv("SWTPU_PK_DISK_CACHE", "0")
+    blobs = {}
+    for dev in (cuda, torch.device("cpu")):
+        cs = test_circuit.synthesize(3, 3)
+        srs = marlin.universal_setup(32, 32, 64, marlin.generate_rand(), device=dev)
+        pk, vk = marlin.index(srs, cs)
+        before = LAUNCHES["mask_draw"]
+        proof = marlin.prove(pk, cs, chacha12_rng(bytes(range(32))))
+        drawn = LAUNCHES["mask_draw"] - before
+        assert drawn == (1 if dev.type == "cuda" else 0), (dev, drawn)
+        assert marlin.verify(vk, [], proof)
+        blobs[dev.type] = serialize_proof(proof)
+    assert blobs["cuda"] == blobs["cpu"]
