@@ -78,7 +78,7 @@ class UniversalSRS:
                  powers_of_gamma_g: list[G1Point], *, host_rows: Optional[np.ndarray] = None):
         if powers_xy.dim() != 3 or powers_xy.shape[:2] != (2, 24):
             raise ValueError(f"expected [2, 24, N] affine planes, got {tuple(powers_xy.shape)}")
-        self.powers_xy = powers_xy
+        self.powers_xy = g1_limb.row_major(powers_xy)  # the MSM reads its rows in place
         self._host_rows = host_rows
         self._host_rows_lock = threading.Lock()
         self.h = h

@@ -198,6 +198,24 @@ def normalize_affine(xyz):
     return torch.stack([_F.select(is_id, zero, x), _F.select(is_id, zero, y)])
 
 
+def table_rows(planes: torch.Tensor) -> torch.Tensor:
+    """[2, 24, N] affine planes -> [N, 48] rows (x limbs, then y limbs), the
+    layout the MSM's accumulate reads: a view when the planes are a view of
+    such rows (:func:`row_major`), else a copy."""
+    return planes.reshape(2 * L, -1).t().contiguous()
+
+
+def planes_of_rows(rows: torch.Tensor) -> torch.Tensor:
+    """[N, 48] rows -> the [2, 24, N] affine planes, a view of them."""
+    return rows.t().reshape(2, L, -1)
+
+
+def row_major(planes: torch.Tensor) -> torch.Tensor:
+    """[2, 24, N] affine planes as a view of one row-major [N, 48] table,
+    copied once unless they are one already."""
+    return planes_of_rows(table_rows(planes))
+
+
 # -------------------------------------------------------- host bridge ----
 
 

@@ -3,12 +3,14 @@
 Port of ``simpleworks_tpu/ops/srs_device.py``.  The host builds the small
 32 × 256 window table d·2^(8w)·G once (8k point adds); the device then
 walks each lane's 32 byte digits, adding one table row a window: on the
-card one launch of the fixed-base kernel over all lanes
+card one launch of the fixed-base kernel over the lanes
 (``g1_fused.fixed_base``), its accumulators in registers.
 :func:`fixed_base_powers_device` returns the Jacobian planes, bit for bit
 the reference's table; :func:`fixed_base_powers_affine` normalises them to
 Z = 1 on the card with one batched inversion (``g1_limb.normalize_affine``),
-the layout the MSM's mixed adds read.  :func:`fixed_base_per_window` is the
+the layout the MSM's mixed adds read, a pass of up to ``SETUP_CHUNK`` lanes
+at a time (one pass up to 2^22 lanes, 16 at 2^26), into the row-major table
+the MSM's accumulate reads.  :func:`fixed_base_per_window` is the
 route the kernel replaced, one gather and one point-add launch a window,
 kept as its baseline.
 """
@@ -25,6 +27,9 @@ from . import g1_fused, g1_limb
 WINDOW_BITS = 8
 NUM_WINDOWS = g1_fused.WINDOWS  # 256 / 8
 CHUNK = 1 << 19  # lanes a pass of the per-window route (bounds its temporaries)
+#: lanes a pass of the setup's fixed base and normalisation: ~3.4 GB of
+#: Jacobian planes and inversion tree a pass, whatever the degree
+SETUP_CHUNK = 1 << 22
 
 
 @lru_cache(maxsize=4)
@@ -78,5 +83,15 @@ def fixed_base_per_window(base: G1Point, scalars_std: torch.Tensor):
 
 def fixed_base_powers_affine(base: G1Point, scalars_std: torch.Tensor) -> torch.Tensor:
     """As :func:`fixed_base_powers_device`, normalised on the device to the
-    [2, 24, N] affine X/Y planes (Z = 1; the identity as x = y = 0)."""
-    return g1_limb.normalize_affine(fixed_base_powers_device(base, scalars_std))
+    [2, 24, N] affine X/Y planes (Z = 1; the identity as x = y = 0), kept as
+    a view of one row-major [N, 48] table (``g1_limb.row_major``).  Lanes go
+    through the fixed base and the normalisation ``SETUP_CHUNK`` at a time,
+    which bounds their temporaries; an inverse is the same in any batch, so
+    the planes do not depend on the chunk."""
+    n = scalars_std.shape[1]
+    rows = torch.empty((n, 2 * g1_limb.L), dtype=torch.int32, device=scalars_std.device)
+    for lo in range(0, n, SETUP_CHUNK):
+        sc = scalars_std[:, lo : lo + SETUP_CHUNK]
+        rows[lo : lo + sc.shape[1]] = g1_limb.table_rows(
+            g1_limb.normalize_affine(fixed_base_powers_device(base, sc)))
+    return g1_limb.planes_of_rows(rows)
